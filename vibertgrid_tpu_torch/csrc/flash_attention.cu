@@ -1,0 +1,391 @@
+// Fused self-attention on packed heads: out = softmax(q k^T * scale + bias) v
+// per (batch, head), with q/k/v/out laid out [B, T, H*D].
+//
+// Replaces: vibertgrid_tpu/ops/flash_attention.py::_fwd_kernel. The TPU
+// kernel held a whole [T, T] fp32 score tile in VMEM per head group; T is at
+// most 512 (one framed 510-token window), so no online softmax was needed.
+//
+// Bound on this card: at the flagship (B=16, H=12, T=512, D=64, bf16) the
+// work is 4*B*H*T^2*D = 12.9 GFLOP, 13 us at the 989 TFLOP/s bf16 tensor
+// peak, and the bytes are q, k, v and out once each, 50 MB or 15 us at
+// 3.35 TB/s: the two bounds are about equal.
+//
+// Design: one block per (query tile, head, batch). Head h is read straight
+// out of the packed layout at columns h*D .. h*D+D, so no head transposes
+// exist. Phase 1 streams K in 64-row tiles through shared memory and keeps
+// the fp32 scores of the block's query rows against all keys in shared
+// memory (64 KB for 32 rows at T=512). Phase 2 takes each row's max and sum
+// and normalises, rounding p to the storage dtype as the TPU kernel does
+// before its p.v product (flash_attention.py:123). Phase 3 streams V tiles
+// and accumulates p.v in fp32. Keys past T get bias -1e9 (zero weight, as
+// the TPU kernel's -1e9 padding gives) and query rows past T are not
+// stored, so any T <= 512 works without the caller padding.
+//
+// Two bodies share that plan. bf16 with D a multiple of 16 (the flagship)
+// runs both products on the tensor cores as 16x16x16 mma (WMMA) with K/V
+// tiles double-buffered by cp.async (namespace tc below). Every other case
+// (the fp32 forward) runs fp32 FMAs on the CUDA cores: the next section.
+// Neither uses wgmma or TMA yet.
+
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace {
+
+// fp32 FMA body: 64 query rows a block, scores 64 x Tp fp32 (128 KB at
+// T = 512), each thread 8 rows x 2 key columns of a score tile and 8 rows x
+// ceil(D/32) output columns.
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBQ = 64;        // query rows per block: 8 per warp
+constexpr int kBK = 64;        // keys per K/V tile
+constexpr float kMaskBias = -1e9f;
+
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, size_t base,
+                                          int t0, int T_len, int HD, int D) {
+  for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
+    const int r = i / D, d = i % D, t = t0 + r;
+    dst[r * ld + d] = t < T_len ? vg::to_f32(src[base + (size_t)t * HD + d]) : 0.f;
+  }
+}
+
+// DJ = ceil(D / 32): output columns per thread in phase 3.
+template <typename T, int DJ>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ out, int T_len, int H, int D, int Tp, float scale) {
+  extern __shared__ float smem[];
+  const int ld = D + 1;  // odd stride: lanes reading different rows hit different banks
+  float* Qs = smem;             // [kBQ][ld]
+  float* KVs = Qs + kBQ * ld;   // [kBK][ld], K tiles then V tiles
+  float* Ss = KVs + kBK * ld;   // [kBQ][Tp] scores, then probabilities
+
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int HD = H * D;
+  const size_t base = (size_t)b * T_len * HD + (size_t)h * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 8;  // this warp's 8 query rows within the tile
+
+  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
+    const int r = i / D, d = i % D, t = q0 + r;
+    Qs[r * ld + d] = t < T_len ? vg::to_f32(q[base + (size_t)t * HD + d]) : 0.f;
+  }
+
+  // Phase 1: scores. Thread (warp, lane) owns rows row0..row0+7 and key
+  // columns lane, lane+32 of each tile.
+  for (int k0 = 0; k0 < Tp; k0 += kBK) {
+    __syncthreads();
+    load_tile(KVs, ld, k, base, k0, T_len, HD, D);
+    __syncthreads();
+    float acc[8][2] = {};
+    for (int d = 0; d < D; ++d) {
+      float a[8], bk[2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = Qs[(row0 + i) * ld + d];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) bk[j] = KVs[(lane + 32 * j) * ld + d];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(a[i], bk[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = k0 + lane + 32 * j;
+      const float bv = c < T_len ? bias[(size_t)b * T_len + c] : kMaskBias;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) Ss[(row0 + i) * Tp + c] = acc[i][j] * scale + bv;
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: each warp normalises its own 8 rows.
+  for (int i = 0; i < 8; ++i) {
+    float* row = Ss + (row0 + i) * Tp;
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int c = lane; c < Tp; c += 32) m = fmaxf(m, row[c]);
+    m = vg::warp_max(m);
+    float l = 0.f;
+    for (int c = lane; c < Tp; c += 32) {
+      const float e = expf(row[c] - m);
+      row[c] = e;
+      l += e;
+    }
+    l = vg::warp_sum(l);
+    for (int c = lane; c < Tp; c += 32) row[c] = vg::round_through<T>(row[c] / l);
+  }
+
+  // Phase 3: out = p v. Thread owns rows row0..row0+7, columns lane + 32 j.
+  float o[8][DJ] = {};
+  for (int k0 = 0; k0 < Tp; k0 += kBK) {
+    __syncthreads();
+    load_tile(KVs, ld, v, base, k0, T_len, HD, D);
+    __syncthreads();
+    for (int kk = 0; kk < kBK; ++kk) {
+      float p[8], vv[DJ];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p[i] = Ss[(row0 + i) * Tp + k0 + kk];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const int c = lane + 32 * j;
+        vv[j] = c < D ? KVs[kk * ld + c] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) o[i][j] = fmaf(p[i], vv[j], o[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = q0 + row0 + i;
+    if (t >= T_len) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) out[base + (size_t)t * HD + c] = vg::from_f32<T>(o[i][j]);
+    }
+  }
+}
+
+template <typename T, int DJ>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
+                   void* out, int B, int T_len, int H, int D, float scale,
+                   cudaStream_t stream) {
+  const int Tp = (T_len + kBK - 1) / kBK * kBK;
+  const size_t smem = ((size_t)(kBQ + kBK) * (D + 1) + (size_t)kBQ * Tp) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<T, DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
+  attention_kernel<T, DJ><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      static_cast<T*>(out), T_len, H, D, Tp, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const float* bias,
+                     void* out, int B, int T_len, int H, int D, float scale,
+                     cudaStream_t stream) {
+  if (D <= 32) return launch<T, 1>(q, k, v, bias, out, B, T_len, H, D, scale, stream);
+  if (D <= 64) return launch<T, 2>(q, k, v, bias, out, B, T_len, H, D, scale, stream);
+  if (D <= 128) return launch<T, 4>(q, k, v, bias, out, B, T_len, H, D, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (D a multiple of 16): 16x16x16 bf16 mma (WMMA)
+// with fp32 accumulation, 32 query rows a block so that two blocks share an
+// SM. The walk is one sequence of stages, the K tiles then the V tiles,
+// double-buffered with cp.async so tile s+1 loads while tile s computes.
+// Each K stage gives a 32 x 64 score tile, one fragment a warp, stored raw as
+// fp32. After the last K tile, phase 2 applies scale and bias and normalises
+// each row in registers (at most 16 values a lane at T <= 512), then writes
+// p as bf16 over the first half of the row's own fp32 storage, where the V
+// stages read it as the row-major A operand of p.v.
+// Shared memory at D = 64, T = 512: q tile 4.5 KB, two K/V tiles 18 KB,
+// scores 32 x 516 x 4 = 65 KB, the fp32 output tile 8.5 KB (96 KB).
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+constexpr int kRows = 32;  // query rows per block: 4 per warp
+
+__host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
+
+template <int D>
+struct Smem {
+  static constexpr int kLd = D + 8, kLdO = D + 4;
+  static constexpr int kQ = align128(kRows * kLd * 2);
+  static constexpr int kTile = align128(kBK * kLd * 2);
+  __host__ __device__ static int scores(int Tp) { return align128(kRows * (Tp + 4) * 4); }
+  __host__ __device__ static int bytes(int Tp) { return kQ + 2 * kTile + scores(Tp) + kRows * kLdO * 4; }
+};
+
+// Rows t0 .. t0+rows-1 of one head into shared memory (zeros past T).
+template <int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t base, int t0,
+                                          int rows, int T_len, int HD) {
+  constexpr int kLd = D + 8;
+  for (int i = threadIdx.x; i < rows * D / 8; i += kThreads) {
+    const int r = i / (D / 8), c8 = i % (D / 8), t = t0 + r;
+    bf16* d = dst + r * kLd + c8 * 8;
+    if (t < T_len)
+      vg::cp_async16(d, src + base + (size_t)t * HD + c8 * 8);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ bias,
+                 bf16* __restrict__ out, int T_len, int H, int Tp, float scale) {
+  using L = Smem<D>;
+  constexpr int kLd = L::kLd, kLdO = L::kLdO;
+  constexpr int DF = D / 16;                 // output fragments per row block
+  constexpr int kOut = (2 * DF + 7) / 8;     // output fragments per warp
+  const int ldS = Tp + 4;                    // fp32 scores; p is bf16 with ld 2*ldS
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* KVs = reinterpret_cast<bf16*>(smem_tc + L::kQ);  // [2][kBK][kLd]
+  float* Ss = reinterpret_cast<float*>(smem_tc + L::kQ + 2 * L::kTile);
+  float* Os = reinterpret_cast<float*>(smem_tc + L::kQ + 2 * L::kTile + L::scores(Tp));
+  const bf16* Ps = reinterpret_cast<const bf16*>(Ss);
+
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int HD = H * D;
+  const size_t base = (size_t)b * T_len * HD + (size_t)h * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = Tp / kBK, total = 2 * n_tiles;
+  auto prefetch = [&](int s) {
+    bf16* dst = KVs + (s & 1) * (L::kTile / 2);
+    if (s < n_tiles)
+      load_rows<D>(dst, k, base, s * kBK, kBK, T_len, HD);
+    else
+      load_rows<D>(dst, v, base, (s - n_tiles) * kBK, kBK, T_len, HD);
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kOut];
+#pragma unroll
+  for (int u = 0; u < kOut; ++u) wmma::fill_fragment(o[u], 0.f);
+
+  load_rows<D>(Qs, q, base, q0, kRows, T_len, HD);
+  prefetch(0);
+  vg::cp_async_commit();
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) prefetch(s + 1);
+    vg::cp_async_commit();
+    vg::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* tile = KVs + (s & 1) * (L::kTile / 2);
+    if (s < n_tiles) {
+      // Phase 1: raw scores of key tile s; warp owns one 16 x 16 fragment.
+      const int rb = warp / 4, cb = warp % 4;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
+      wmma::fill_fragment(sc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
+        wmma::load_matrix_sync(a, Qs + rb * 16 * kLd + kk, kLd);
+        wmma::load_matrix_sync(bk, tile + cb * 16 * kLd + kk, kLd);
+        wmma::mma_sync(sc, a, bk, sc);
+      }
+      wmma::store_matrix_sync(Ss + rb * 16 * ldS + s * kBK + cb * 16, sc, ldS,
+                              wmma::mem_row_major);
+      if (s == n_tiles - 1) {
+        __syncthreads();
+        // Phase 2: p = softmax(s * scale + bias), rounded to bf16, in place.
+        const int nj = Tp / 32;
+        for (int i = 0; i < 4; ++i) {
+          float* row = Ss + (warp * 4 + i) * ldS;
+          float vals[16];
+          float m = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            if (j < nj) {
+              const int c = lane + 32 * j;
+              const float bv = c < T_len ? bias[(size_t)b * T_len + c] : kMaskBias;
+              vals[j] = row[c] * scale + bv;
+              m = fmaxf(m, vals[j]);
+            }
+          }
+          m = vg::warp_max(m);
+          float l = 0.f;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            if (j < nj) {
+              vals[j] = expf(vals[j] - m);
+              l += vals[j];
+            }
+          }
+          l = vg::warp_sum(l);
+          __syncwarp();
+          bf16* prow = reinterpret_cast<bf16*>(row);
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            if (j < nj) prow[lane + 32 * j] = __float2bfloat16_rn(vals[j] / l);
+        }
+      }
+    } else {
+      // Phase 3: out += p[:, tile] . v tile.
+      const int k0 = (s - n_tiles) * kBK;
+#pragma unroll
+      for (int u = 0; u < kOut; ++u) {
+        const int f = warp + 8 * u, rb = f / DF, cb = f % DF;
+        if (f < 2 * DF) {
+#pragma unroll
+          for (int kk = 0; kk < kBK; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+            wmma::load_matrix_sync(a, Ps + rb * 16 * (2 * ldS) + k0 + kk, 2 * ldS);
+            wmma::load_matrix_sync(bv, tile + kk * kLd + cb * 16, kLd);
+            wmma::mma_sync(o[u], a, bv, o[u]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int u = 0; u < kOut; ++u) {
+    const int f = warp + 8 * u, rb = f / DF, cb = f % DF;
+    if (f < 2 * DF)
+      wmma::store_matrix_sync(Os + rb * 16 * kLdO + cb * 16, o[u], kLdO, wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int r = i / D, c = i % D, t = q0 + r;
+    if (t < T_len) out[base + (size_t)t * HD + c] = __float2bfloat16_rn(Os[r * kLdO + c]);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out,
+                   int B, int T_len, int H, float scale, cudaStream_t stream) {
+  const int Tp = (T_len + kBK - 1) / kBK * kBK;
+  const int smem = Smem<D>::bytes(Tp);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_len + kRows - 1) / kRows, H, B);
+  attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, static_cast<bf16*>(out), T_len, H, Tp, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, const float* bias,
+                          void* out, int B, int T_len, int H, int D, float scale,
+                          cudaStream_t st) {
+  switch (D) {
+    case 32: return tc::launch<32>(q, k, v, bias, out, B, T_len, H, scale, st);
+    case 64: return tc::launch<64>(q, k, v, bias, out, B, T_len, H, scale, st);
+    case 128: return tc::launch<128>(q, k, v, bias, out, B, T_len, H, scale, st);
+    default:
+      return dispatch<__nv_bfloat16>(q, k, v, bias, out, B, T_len, H, D, scale, st);
+  }
+}
+
+}  // namespace
+
+// q, k, v, out: [B, T, H*D] contiguous, dtype 0 = fp32, 1 = bf16;
+// bias: [B, T] fp32 additive key bias. T <= 512, D <= 128.
+extern "C" int vg_flash_attention(const void* q, const void* k, const void* v,
+                                  const void* bias, void* out, int B, int T_len, int H,
+                                  int D, float scale, int dtype, void* stream) {
+  if (T_len < 1 || T_len > 512) return cudaErrorInvalidValue;
+  const float* bs = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(q, k, v, bs, out, B, T_len, H, D, scale, st);
+  if (dtype == 1) return dispatch_bf16(q, k, v, bs, out, B, T_len, H, D, scale, st);
+  return cudaErrorInvalidValue;
+}

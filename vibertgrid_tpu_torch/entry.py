@@ -1,0 +1,69 @@
+"""Entry points of the port: the flagship model and a synthetic batch.
+
+- :func:`make_batch` builds the same synthetic batch, from the same numpy
+  draws, as the JAX package's ``__graft_entry__._make_batch``.
+- :func:`entry` returns the flagship inference forward (BERT-base-uncased,
+  ResNet-34-FPN, simplified head, bf16) and its arguments, randomly
+  initialised from a seeded generator.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vibertgrid_tpu_torch.device import resolve_device
+from vibertgrid_tpu_torch.models.vibertgrid import Batch, ModelConfig, ViBERTgridNet
+
+FLAGSHIP = ModelConfig(
+    num_classes=5,
+    bert_version="bert-base-uncased",
+    backbone="resnet_34_fpn",
+    classifier_mode="simp",
+    compute_dtype=torch.bfloat16,
+)
+
+
+def make_batch(b: int, h: int, w: int, t: int, s: int, vocab: int, seed: int = 0,
+               device="cuda") -> Batch:
+    """Random boxes of 8-32 x 4-16 px, 3·s sorted segment ids over the first
+    tokens, normal images, every box valid."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    boxes = []
+    for _ in range(b):
+        x0 = rng.integers(0, w - 32, s)
+        y0 = rng.integers(0, h - 16, s)
+        boxes.append(
+            np.stack([x0, y0, x0 + rng.integers(8, 32, s), y0 + rng.integers(4, 16, s)], 1)
+        )
+    n_tok = min(3 * s, t)
+    seg_ids = np.sort(rng.integers(0, s, (b, n_tok)), axis=1)
+    seg_ids = np.pad(seg_ids, ((0, 0), (0, t - n_tok)))
+    token_mask = np.zeros((b, t), np.int32)
+    token_mask[:, :n_tok] = 1
+    arrays = dict(
+        images=np.asarray(rng.standard_normal((b, h, w, 3)), np.float32),
+        tokens=np.asarray(rng.integers(3, vocab - 1, (b, t)), np.int32),
+        token_mask=token_mask,
+        seg_ids=np.asarray(seg_ids, np.int32),
+        boxes=np.asarray(np.stack(boxes), np.int32),
+        box_mask=np.ones((b, s), bool),
+        seg_classes=np.asarray(rng.integers(0, 5, (b, s)), np.int32),
+    )
+    return Batch(**{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
+
+
+def entry(device="cuda", seed: int = 0):
+    """``(forward, (model, batch))``: ``forward(model, batch)`` is the
+    flagship's inference ``pred_label`` ``[1, 32, 5]`` on the batch of the
+    JAX package's ``entry()`` (one 256x256 page, 510 tokens, 32 segments)."""
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    model = ViBERTgridNet(FLAGSHIP, device=dev, generator=generator).eval()
+    batch = make_batch(b=1, h=256, w=256, t=510, s=32, vocab=30522, device=dev)
+
+    def forward(model: ViBERTgridNet, batch: Batch) -> torch.Tensor:
+        return model(batch).pred_label
+
+    return forward, (model, batch)

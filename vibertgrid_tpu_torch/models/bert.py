@@ -1,0 +1,178 @@
+"""BERT / RoBERTa text encoder (port of ``vibertgrid_tpu/models/bert.py``,
+inference).
+
+On CUDA tensors every layer's attention runs the hand-written attention
+kernel and its FFN tail the fused FFN kernel; on CPU tensors both run their
+plain twins. The Q/K/V projections and the attention out-projection are
+plain ``F.linear`` products, as the JAX package left them to XLA; the
+attention epilogue is out-projection → residual → LayerNorm.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from vibertgrid_tpu_torch.device import resolve_device
+from vibertgrid_tpu_torch.models.layers import dense, embedding, linear
+from vibertgrid_tpu_torch.models.norm import LayerNorm
+from vibertgrid_tpu_torch.ops.flash_attention import flash_attention
+from vibertgrid_tpu_torch.ops.fused_ffn import fused_ffn
+
+# name → (hidden size, flavor); the reference's 7-entry bert_model_list
+# plus two tiny test configs.
+BERT_MODEL_REGISTRY = {
+    "private_bert-base-uncased": (768, "bert"),
+    "bert-base-uncased": (768, "bert"),
+    "bert-base-cased": (768, "bert"),
+    "roberta-base": (768, "roberta"),
+    "bert-base-chinese": (768, "bert"),
+    "hfl/chinese-bert-wwm-ext": (768, "bert"),
+    "hfl/chinese-bert-wwm": (768, "bert"),
+    "tiny-bert-test": (64, "bert"),
+    "tiny-roberta-test": (64, "roberta"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TextEncoderConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    pad_token_id: int = 0
+    flavor: str = "bert"  # "bert" | "roberta"
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    # Kept for YAML compatibility with the JAX package. They select nothing
+    # here: CUDA tensors always take the kernels, CPU tensors the twins.
+    attention_impl: str = "auto"
+    ffn_impl: str = "auto"
+    attn_epilogue: str = "auto"
+    mesh: Any = None
+
+    @staticmethod
+    def tiny(flavor: str = "bert") -> "TextEncoderConfig":
+        return TextEncoderConfig(
+            vocab_size=512,
+            hidden_size=64,
+            num_layers=2,
+            num_heads=4,
+            intermediate_size=128,
+            max_position_embeddings=520 if flavor == "roberta" else 512,
+            flavor=flavor,
+            pad_token_id=1 if flavor == "roberta" else 0,
+        )
+
+    @staticmethod
+    def base(flavor: str = "bert", vocab_size: int | None = None) -> "TextEncoderConfig":
+        if flavor == "roberta":
+            return TextEncoderConfig(
+                vocab_size=vocab_size or 50265,
+                max_position_embeddings=514,
+                pad_token_id=1,
+                flavor="roberta",
+            )
+        return TextEncoderConfig(vocab_size=vocab_size or 30522)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, config: TextEncoderConfig, dtype, *, device, generator):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        d = config.hidden_size
+        for name in ("query", "key", "value", "out"):
+            setattr(self, name, linear(d, d, device=device, generator=generator))
+
+    def forward(self, hidden, attn_bias):
+        cfg = self.config
+        dt = self.dtype
+        q = dense(hidden, self.query, dt)
+        k = dense(hidden, self.key, dt)
+        v = dense(hidden, self.value, dt)
+        dh = cfg.hidden_size // cfg.num_heads
+        ctx = flash_attention(q, k, v, attn_bias, 1.0 / float(dh) ** 0.5, cfg.num_heads)
+        return dense(ctx, self.out, dt)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, config: TextEncoderConfig, dtype, *, device, generator):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        d, f = config.hidden_size, config.intermediate_size
+        eps = config.layer_norm_eps
+        kw = dict(device=device, generator=generator)
+        self.attention = SelfAttention(config, dtype, **kw)
+        self.attention_ln = LayerNorm(d, eps=eps, dtype=dtype, device=device)
+        self.intermediate = linear(d, f, **kw)
+        self.output = linear(f, d, **kw)
+        self.output_ln = LayerNorm(d, eps=eps, dtype=dtype, device=device)
+
+    def forward(self, hidden, attn_bias):
+        b, t, d = hidden.shape
+        dt = self.dtype
+        hidden = self.attention_ln(hidden + self.attention(hidden, attn_bias))
+        out = fused_ffn(
+            hidden.reshape(b * t, d),
+            self.intermediate.weight.to(dt), self.intermediate.bias,
+            self.output.weight.to(dt), self.output.bias,
+            self.output_ln.weight, self.output_ln.bias,
+            self.config.layer_norm_eps,
+        )
+        return out.reshape(b, t, d)
+
+
+class TextEncoder(nn.Module):
+    """BERT/RoBERTa encoder returning the last hidden state:
+    ``forward(input_ids [B, T], attention_mask [B, T])`` → ``[B, T, D]``."""
+
+    def __init__(self, config: TextEncoderConfig, dtype=torch.float32, *,
+                 device="cuda", generator: torch.Generator | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.config = config
+        self.dtype = dtype
+        d = config.hidden_size
+        kw = dict(device=device, generator=generator)
+        self.word_embeddings = embedding(config.vocab_size, d, **kw)
+        self.position_embeddings = embedding(config.max_position_embeddings, d, **kw)
+        self.token_type_embeddings = embedding(config.type_vocab_size, d, **kw)
+        self.embeddings_ln = LayerNorm(
+            d, eps=config.layer_norm_eps, dtype=dtype, device=device
+        )
+        self.layer = nn.ModuleList(
+            EncoderLayer(config, dtype, **kw) for _ in range(config.num_layers)
+        )
+
+    def forward(self, input_ids, attention_mask):
+        cfg = self.config
+        b, t = input_ids.shape
+        ids = input_ids.long()
+        if cfg.flavor == "roberta":
+            # HF create_position_ids_from_input_ids: pads keep padding_idx,
+            # other positions count from padding_idx + 1.
+            not_pad = (ids != cfg.pad_token_id).long()
+            position_ids = torch.cumsum(not_pad, dim=1) * not_pad + cfg.pad_token_id
+        else:
+            position_ids = torch.arange(t, device=ids.device).expand(b, t)
+        hidden = (
+            self.word_embeddings(ids)
+            + self.position_embeddings(position_ids)
+            + self.token_type_embeddings(torch.zeros_like(ids))
+        )
+        hidden = self.embeddings_ln(hidden)
+        attn_bias = torch.where(attention_mask.bool(), 0.0, -1e9).float()  # [B, T]
+        for layer in self.layer:
+            hidden = layer(hidden, attn_bias)
+        return hidden

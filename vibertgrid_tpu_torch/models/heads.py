@@ -1,0 +1,96 @@
+"""Late fusion and the simplified field-type head (port of
+``vibertgrid_tpu/models/heads.py``, inference only).
+
+Heads work on flattened ``[N = B·S]`` segment rows. The full two-stage
+head and the CRF head are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vibertgrid_tpu_torch.models.layers import conv, conv2d, dense, linear
+from vibertgrid_tpu_torch.models.norm import MaskedBatchNorm
+
+
+class MLPClassifier(nn.Module):
+    """'single': one linear layer; 'multi': linear → ReLU → linear with a
+    half-width hidden layer."""
+
+    def __init__(self, in_f: int, out_f: int, layer_mode: str = "single", *,
+                 dtype, device, generator):
+        super().__init__()
+        self.dtype = dtype
+        self.layer_mode = layer_mode
+        kw = dict(device=device, generator=generator)
+        if layer_mode == "multi":
+            self.hidden = linear(in_f, in_f // 2, **kw)
+            in_f //= 2
+        self.out = linear(in_f, out_f, **kw)
+
+    def forward(self, x):
+        if self.layer_mode == "multi":
+            x = F.relu(dense(x, self.hidden, self.dtype))
+        return dense(x, self.out, self.dtype)
+
+
+class ROIEmbedding(nn.Module):
+    """RoI features ``[N, 7, 7, C]`` (NHWC) → 1024-d: two (3×3 conv, masked
+    BatchNorm, ReLU), then a flatten in NHWC order and a linear layer."""
+
+    def __init__(self, channels: int, roi_shape: int, *, dtype, device, generator):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(device=device, generator=generator)
+        self.conv1 = conv2d(channels, channels, 3, **kw)
+        self.bn1 = MaskedBatchNorm(channels, dtype=dtype, device=device)
+        self.conv2 = conv2d(channels, channels, 3, **kw)
+        self.bn2 = MaskedBatchNorm(channels, dtype=dtype, device=device)
+        self.linear = linear(roi_shape * roi_shape * channels, 1024, **kw)
+
+    def forward(self, rois):
+        x = rois.permute(0, 3, 1, 2).to(self.dtype)
+        x = F.relu(self.bn1(conv(x, self.conv1, self.dtype)))
+        x = F.relu(self.bn2(conv(x, self.conv2, self.dtype)))
+        # the linear weight was laid out for an NHWC flatten
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return dense(x, self.linear, self.dtype)
+
+
+class LateFusion(nn.Module):
+    """concat(RoI embedding 1024, segment BERT embedding) → linear 1024."""
+
+    def __init__(self, channels: int, roi_shape: int, text_dim: int, *, dtype,
+                 device, generator):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(device=device, generator=generator)
+        self.roi_embedding = ROIEmbedding(channels, roi_shape, dtype=dtype, **kw)
+        self.fuse = linear(1024 + text_dim, 1024, **kw)
+
+    def forward(self, rois, bert_embeddings):
+        roi_emb = self.roi_embedding(rois)
+        fuse = torch.cat([roi_emb, bert_embeddings.to(roi_emb.dtype)], dim=-1)
+        return dense(fuse, self.fuse, self.dtype)
+
+
+class SimplifiedFieldTypeClassification(nn.Module):
+    """Multi-class classifier plus the auxiliary pos/neg classifier; at
+    inference only the class softmax is returned.
+
+    Both MLPs are always two-layer ("multi"), whatever ``layer_mode`` says:
+    the reference compares against the typo "sigle", so its shipped
+    "single" configs build the two-layer head, and the published numbers
+    come from that architecture."""
+
+    def __init__(self, in_f: int, num_classes: int, *, dtype, device, generator):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.pos_neg_net = MLPClassifier(in_f, 2, "multi", **kw)
+        self.category_net = MLPClassifier(in_f, num_classes, "multi", **kw)
+
+    def forward(self, fuse_embeddings):
+        logits = self.category_net(fuse_embeddings)
+        return torch.softmax(logits.float(), dim=-1)

@@ -4,16 +4,24 @@
 
 1. builds the hand-written kernels from ``vibertgrid_tpu_torch/csrc``
    (``sm_90a``) into ``build/vibertgrid_tpu_torch/``;
-2. holds each kernel against its plain PyTorch twin on the card, in bf16,
-   at the shapes of the flagship forward, and times kernel, twin and, where
-   one PyTorch call computes the same function, that call;
+2. holds each of the six kernels against its plain PyTorch twin on the card,
+   in bf16, at the flagship's shapes and a ragged one (forward outputs, with
+   and without dropout, and gradients), and times kernel, twin and, where one
+   PyTorch call computes the same function, that call;
 3. drives the flagship inference forward (BERT-base-uncased, ResNet-34-FPN,
    simplified head, bf16; batch 16, 512x384 images, one 510-token window,
    128 segments) through the port's entry points, checks its output and
-   that it launched every kernel (12 attention, 12 FFN, 1 scatter), and
+   that it launched its kernels (12 attention, 12 FFN, 1 scatter), and
    reports docs/s and where the device time went;
-4. runs the same forward in fp32 at batch 2 on the card (kernels) and on
-   the host CPU (twins) from one set of weights and compares them.
+4. drives the flagship train step at the same shapes (dropout, the OHEM and
+   sampled losses, backward, SGD + AdamW with bf16 state, BatchNorm
+   statistics), checks the launches of a step (attention 12, attention
+   backward 12, saved-residual FFN 12, scatter 1, scatter backward 1, the
+   inference FFN 0), that loss and gradients are finite and that parameters
+   and statistics moved, and reports ms a step, docs/s and the device time;
+5. runs the inference forward and one train step in fp32 at batch 2 on the
+   card (kernels) and on the host CPU (twins) from one set of weights and
+   the same seeds, and compares them.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -26,6 +34,7 @@ import copy
 import dataclasses
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -43,9 +52,42 @@ B, H, W, T, S, VOCAB = 16, 512, 384, 510, 128, 30522
 # differ by an ulp or two: 2 ulps of bf16 is 2^-6 relative.
 ATTN_TOL = dict(atol=2 ** -6, rtol=2 ** -6)   # outputs are averages of N(0,1) values
 FFN_TOL = dict(atol=2 ** -5, rtol=2 ** -6)    # LayerNorm outputs up to ~5
+# Backward: dq, dk, dv are bf16 roundings of fp32 sums of ~T products; kernel
+# and twin sum in another order, so an entry can land on the neighbouring bf16
+# value (2 ulps: rtol 2^-6). The entries are 0.08-0.17 in rms at these inputs;
+# atol, 2^-8, covers the entries near zero, where the differing roundings of
+# ds (2^-9 relative, ~T terms) outweigh the entry's own ulp. Measured on an
+# H100: largest error 2^-9 at T=512 and 2^-8 at T=130, a third of the limit at
+# most. The check prints each tensor's largest error beside its rms.
+ATTN_BWD_TOL = dict(atol=2 ** -8, rtol=2 ** -6)
+# d_bias: fp32 sums of fp32 ds over heads and queries, entries 2-4 in rms;
+# measured 6e-6 at most.
+ATTN_BIAS_TOL = dict(atol=5e-5, rtol=1e-4)
+RSIG_TOL = dict(atol=0.0, rtol=1e-3)          # fp32 1/sqrt(var) of rows summed in another order
+# FFN gradients with the kernel's residuals vs the twin's: the residuals
+# differ by a bf16 ulp here and there, the products sum thousands of terms.
+FFN_GRAD_RTOL = 2 ** -6
+DROP_RATE, DROP_SEED = 0.1, 20240607
+# The fp32 paths of the kernels (fp32 FMAs) against their twins, fp32 on both
+# sides, on a small ragged shape: summation order only.
+FP32_KERNEL_TOL = dict(atol=2e-5, rtol=1e-4)
 # fp32 forward, card (kernels, cuDNN) vs host (twins): the same fp32
 # arithmetic summed in other orders through ~50 layers.
 FP32_FORWARD_ATOL = 1e-3
+# fp32 train step, card vs host, same weights and seeds: the loss is a mean
+# of O(1) terms; a gradient is compared relative to its largest entry. The
+# OHEM selections could in principle flip on a near-tie; none is expected at
+# fp32 agreement of ~1e-6.
+FP32_TRAIN_LOSS_RTOL = 1e-4
+# Gradients, as |card − host| / |host| over a whole tensor. The backward of a
+# randomly initialised net with batch statistics of two pages amplifies the
+# ~1e-7 differences of the forward: measured 2e-7 to 1e-5 in the heads' last
+# layers, about 1e-3 after two BatchNorms, about 1e-2 in the encoder (which
+# the gradient reaches through the whole backbone), the same with every
+# hand-written kernel replaced by nothing but summation order (each is held
+# to its twin in fp32 at FP32_KERNEL_TOL above). The limit tells a wrong
+# backward (errors of order 1) from that noise.
+FP32_TRAIN_GRAD_RTOL = 5e-2
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -74,9 +116,13 @@ def _max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def _assert_close(name, got, want, atol, rtol):
+def _assert_close(name, got, want, atol, rtol, show: bool = False):
     err = (got.float() - want.float()).abs()
     lim = atol + rtol * want.float().abs()
+    if show:
+        print(f"  {name}: max err {err.max().item():.3e}, largest err/limit "
+              f"{(err / lim).max().item():.3f} (atol {atol:.3e}, rtol {rtol:.3e}), "
+              f"rms of the twin's {want.float().square().mean().sqrt().item():.3e}")
     if not bool((err <= lim).all()):
         raise AssertionError(
             f"{name}: kernel differs from twin, max err {err.max().item():.3e} "
@@ -84,39 +130,135 @@ def _assert_close(name, got, want, atol, rtol):
         )
 
 
+def _attention_inputs(dev, b, t, nh, dh, g):
+    q, k, v = (torch.randn(b, t, nh * dh, generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
+    if t == T + 2:  # the flagship batch: 384 tokens + [CLS] + [SEP] valid
+        lengths.fill_(3 * S + 2)
+    valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    return q, k, v, valid, torch.where(valid, 0.0, -1e9).float()
+
+
+def _record(name, source, replaces, **kw):
+    return dict(name=name, route="cuda", source=f"vibertgrid_tpu_torch/csrc/{source}",
+                replaces=f"vibertgrid_tpu/ops/{replaces}", **kw)
+
+
 def check_attention(dev):
     from vibertgrid_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 
     g = torch.Generator(device=dev).manual_seed(1)
     nh, dh = 12, 64
-    # A ragged T (not a multiple of the 64-key tile) with padded keys.
-    for b, t in ((2, 130), (B, T + 2)):
-        q, k, v = (torch.randn(b, t, nh * dh, generator=g, device=dev).bfloat16()
-                   for _ in range(3))
-        lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
-        if t == T + 2:  # the flagship batch: 384 tokens + [CLS] + [SEP] valid
-            lengths.fill_(3 * S + 2)
-        valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]
-        bias = torch.where(valid, 0.0, -1e9).float()
-        args = (q, k, v, bias, dh ** -0.5, nh)
-        got, want = flash_attention(*args), attention_reference(*args)
-        torch.cuda.synchronize()
-        _assert_close(f"attention T={t}", got, want, **ATTN_TOL)
-    err = _max_err(got, want)
-    qh, kh, vh = (x.view(b, t, nh, dh).transpose(1, 2) for x in (q, k, v))
-    mask = valid[:, None, None, :]
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-    _assert_close("sdpa yardstick", sdpa().transpose(1, 2).reshape(b, t, -1), want,
-                  atol=4 * 2 ** -6, rtol=4 * 2 ** -6)
-    ms = _time_ms(lambda: flash_attention(*args))
-    plain_ms = _time_ms(lambda: attention_reference(*args))
-    library_ms = _time_ms(sdpa)
+    # A ragged T (not a multiple of the 64-key tile) with padded keys, then
+    # the flagship's; each without and with dropout of the probabilities.
+    with torch.no_grad():
+        for b, t in ((2, 130), (B, T + 2)):
+            q, k, v, valid, bias = _attention_inputs(dev, b, t, nh, dh, g)
+            for rate in (DROP_RATE, 0.0):
+                args = (q, k, v, bias, dh ** -0.5, nh)
+                got = flash_attention(*args, rate=rate, seed=DROP_SEED)
+                want = attention_reference(*args, seed=DROP_SEED, rate=rate)
+                torch.cuda.synchronize()
+                _assert_close(f"attention T={t} rate={rate}", got, want, **ATTN_TOL)
+        err = _max_err(got, want)
+        qh, kh, vh = (x.view(b, t, nh, dh).transpose(1, 2) for x in (q, k, v))
+        mask = valid[:, None, None, :]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        _assert_close("sdpa yardstick", sdpa().transpose(1, 2).reshape(b, t, -1), want,
+                      atol=4 * 2 ** -6, rtol=4 * 2 ** -6)
+        ms = _time_ms(lambda: flash_attention(*args))
+        drop_ms = _time_ms(lambda: flash_attention(*args, rate=DROP_RATE, seed=DROP_SEED))
+        plain_ms = _time_ms(lambda: attention_reference(*args))
+        library_ms = _time_ms(sdpa)
+    print(f"flash_attention with dropout {DROP_RATE}: {drop_ms:.3f} ms (without: {ms:.3f} ms)")
     bound_ms, bound_by = _bound(4 * b * nh * t * t * dh, 4 * q.numel() * 2 + bias.numel() * 4)
-    return dict(name="flash_attention", route="cuda",
-                source="vibertgrid_tpu_torch/csrc/flash_attention.cu",
-                replaces="vibertgrid_tpu/ops/flash_attention.py:99",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    return _record("flash_attention", "flash_attention.cu", "flash_attention.py:99",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+
+
+def _check_attention_fma(dev, g):
+    """Forward and backward on the kernels' fp32-FMA bodies, at a head width
+    the tensor-core bodies do not take: fp32, then bf16 storage."""
+    from vibertgrid_tpu_torch.ops.flash_attention import (
+        attention_backward_reference,
+        attention_reference,
+        flash_attention,
+    )
+
+    b, t, nh, dh = 2, 70, 3, 24
+    bias = torch.zeros(b, t, device=dev)
+    bias[0, t - 20:] = -1e9
+    for dt, tol in ((torch.float32, FP32_KERNEL_TOL), (torch.bfloat16, ATTN_BWD_TOL)):
+        q, k, v, d_out = (torch.randn(b, t, nh * dh, generator=g, device=dev).to(dt)
+                          for _ in range(4))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+        out = flash_attention(*leaves, dh ** -0.5, nh, rate=DROP_RATE, seed=DROP_SEED)
+        got = (out, *torch.autograd.grad(out, leaves, d_out))
+        want = (attention_reference(q, k, v, bias, dh ** -0.5, nh, DROP_SEED, DROP_RATE),
+                *attention_backward_reference(q, k, v, bias, d_out, dh ** -0.5, nh, DROP_SEED,
+                                              DROP_RATE))
+        torch.cuda.synchronize()
+        for name, a, w in zip(("out", "dq", "dk", "dv", "d_bias"), got, want):
+            name_tol = ATTN_BIAS_TOL if (name, dt) == ("d_bias", torch.bfloat16) else tol
+            _assert_close(f"attention FMA body {dt} {name}", a, w, **name_tol, show=True)
+
+
+def check_attention_bwd(dev):
+    from vibertgrid_tpu_torch.ops.flash_attention import (
+        attention_backward_reference,
+        flash_attention,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    nh, dh = 12, 64
+    names = ("dq", "dk", "dv", "d_bias")
+    for b, t in ((2, 130), (B, T + 2)):
+        q, k, v, valid, bias = _attention_inputs(dev, b, t, nh, dh, g)
+        d_out = torch.randn(b, t, nh * dh, generator=g, device=dev).bfloat16()
+        for rate in (DROP_RATE, 0.0):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+            out = flash_attention(*leaves, dh ** -0.5, nh, rate=rate, seed=DROP_SEED)
+            got = torch.autograd.grad(out, leaves, d_out)
+            want = attention_backward_reference(q, k, v, bias, d_out, dh ** -0.5, nh,
+                                                DROP_SEED, rate)
+            torch.cuda.synchronize()
+            for name, a, w in zip(names, got, want):
+                tol = ATTN_BIAS_TOL if name == "d_bias" else ATTN_BWD_TOL
+                _assert_close(f"attention backward {name} T={t} rate={rate}", a, w, **tol,
+                              show=True)
+    err = max(_max_err(a, w) for a, w in zip(got[:3], want[:3]))
+    _check_attention_fma(dev, g)
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, bias, dh ** -0.5, nh, rate=DROP_RATE, seed=DROP_SEED)
+    ms = _time_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
+    with torch.no_grad():
+        plain_ms = _time_ms(lambda: attention_backward_reference(
+            q, k, v, bias, d_out, dh ** -0.5, nh, DROP_SEED, DROP_RATE), iters=5)
+    heads = [x.detach().view(b, t, nh, dh).transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        *heads, attn_mask=valid[:, None, None, :])
+    d_heads = d_out.view(b, t, nh, dh).transpose(1, 2)
+    library_ms = _time_ms(lambda: torch.autograd.grad(sdpa_out, heads, d_heads, retain_graph=True))
+    # five T x T x D products a head; q, k, v, d_out read, dq, dk, dv written
+    bound_ms, bound_by = _bound(5 * 2 * b * nh * t * t * dh, 7 * q.numel() * 2 + bias.numel() * 4)
+    return _record("flash_attention_bwd", "flash_attention_bwd.cu", "flash_attention.py:127",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+
+
+def _ffn_masters(dev, g, d=768, f=3072):
+    """fp32 parameters as a model holds them: W1, b1, W2, b2, LN scale, LN bias."""
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    return (randn(f, d) * d ** -0.5, randn(f) * 0.1, randn(d, f) * f ** -0.5, randn(d) * 0.1,
+            1 + 0.1 * randn(d), 0.1 * randn(d))
+
+
+def _ffn_params(dev, g, d=768, f=3072, dt=torch.bfloat16):
+    """The masters with W1 and W2 cast to the compute dtype, as the kernel takes them."""
+    return tuple(p.to(dt) if p.ndim == 2 else p for p in _ffn_masters(dev, g, d, f))
 
 
 def check_ffn(dev):
@@ -124,31 +266,106 @@ def check_ffn(dev):
 
     g = torch.Generator(device=dev).manual_seed(2)
     d, f = 768, 3072
-    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
-    w1 = (randn(f, d) * d ** -0.5).bfloat16()
-    w2 = (randn(d, f) * f ** -0.5).bfloat16()
-    b1, b2 = randn(f) * 0.1, randn(d) * 0.1
-    gamma, beta = 1 + 0.1 * randn(d), 0.1 * randn(d)
-    # A row count that is not a multiple of the 32-row block, then the flagship's.
-    for n in (200 - 5, B * (T + 2)):
-        x = randn(n, d).bfloat16()
-        args = (x, w1, b1, w2, b2, gamma, beta, 1e-12)
-        got, want = fused_ffn(*args), ffn_reference(*args)
-        torch.cuda.synchronize()
-        _assert_close(f"fused_ffn N={n}", got, want, **FFN_TOL)
-    ms = _time_ms(lambda: fused_ffn(*args))
-    plain_ms = _time_ms(lambda: ffn_reference(*args))
+    params = _ffn_params(dev, g, d, f)
+    with torch.no_grad():
+        # A row count that is not a multiple of the 32-row block, then the flagship's.
+        for n in (200 - 5, B * (T + 2)):
+            x = torch.randn(n, d, generator=g, device=dev).bfloat16()
+            for rate in (DROP_RATE, 0.0):
+                got = fused_ffn(x, *params, 1e-12, rate=rate, seed=DROP_SEED)
+                want = ffn_reference(x, *params, 1e-12, seed=DROP_SEED, rate=rate)
+                torch.cuda.synchronize()
+                _assert_close(f"fused_ffn N={n} rate={rate}", got, want, **FFN_TOL)
+        ms = _time_ms(lambda: fused_ffn(x, *params, 1e-12))
+        drop_ms = _time_ms(lambda: fused_ffn(x, *params, 1e-12, rate=DROP_RATE, seed=DROP_SEED))
+        plain_ms = _time_ms(lambda: ffn_reference(x, *params, 1e-12))
+    print(f"fused_ffn with dropout {DROP_RATE}: {drop_ms:.3f} ms (without: {ms:.3f} ms)")
     nbytes = (2 * n * d + 2 * d * f) * 2 + (f + 3 * d) * 4
     bound_ms, bound_by = _bound(4 * n * d * f, nbytes)
-    return dict(name="fused_ffn", route="cuda", source="vibertgrid_tpu_torch/csrc/fused_ffn.cu",
-                replaces="vibertgrid_tpu/ops/fused_ffn.py:126", max_abs_err=_max_err(got, want),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return _record("fused_ffn", "fused_ffn.cu", "fused_ffn.py:126",
+                   max_abs_err=_max_err(got, want), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def check_scatter(dev):
+def check_ffn_saved(dev):
+    """The training forward's four outputs against the twin's; then the
+    wrapper on the fp32 parameters (it casts the weights itself): its output
+    against the twin's, and its gradients (kernel forward, plain PyTorch
+    backward from the saved residuals) against the same backward on the
+    twin's residuals and the twin's weights."""
+    from vibertgrid_tpu_torch.ops import fused_ffn as ffn
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, f = 768, 3072
+    masters = _ffn_masters(dev, g, d, f)
+    params = tuple(p.bfloat16() if p.ndim == 2 else p for p in masters)
+    for n in (200 - 5, B * (T + 2)):
+        x = torch.randn(n, d, generator=g, device=dev).bfloat16()
+        for rate in (DROP_RATE, 0.0):
+            with torch.no_grad():
+                got = ffn._launch(x, *params, 1e-12, DROP_SEED, rate, saved=True)
+                want = ffn.ffn_saved_reference(x, *params, 1e-12, DROP_SEED, rate)
+                torch.cuda.synchronize()
+            for name, a, w, tol in zip(("y", "h1", "yhat", "rsig"), got, want,
+                                       (FFN_TOL, FFN_TOL, FFN_TOL, RSIG_TOL)):
+                _assert_close(f"fused_ffn_saved {name} N={n} rate={rate}", a, w, **tol)
+    err = _max_err(got[0], want[0])
+
+    # The fp32-FMA body on a ragged row count: fp32 at the flagship's widths,
+    # then bf16 storage at a width the tensor-core body does not take.
+    for dt, dd, ff in ((torch.float32, d, f), (torch.bfloat16, 64, 256)):
+        small = _ffn_params(dev, g, dd, ff, dt)
+        xs = torch.randn(200 - 5, dd, generator=g, device=dev).to(dt)
+        with torch.no_grad():
+            got_s = ffn._launch(xs, *small, 1e-12, DROP_SEED, DROP_RATE, saved=True)
+            want_s = ffn.ffn_saved_reference(xs, *small, 1e-12, DROP_SEED, DROP_RATE)
+            torch.cuda.synchronize()
+        tols = [FP32_KERNEL_TOL] * 4 if dt == torch.float32 else [FFN_TOL] * 3 + [RSIG_TOL]
+        for name, a, w, tol in zip(("y", "h1", "yhat", "rsig"), got_s, want_s, tols):
+            _assert_close(f"fused_ffn_saved FMA body {dt} {name}", a, w, **tol)
+
+    # The wrapper, given the fp32 masters: its output against the twin's on
+    # the cast weights, then its gradients with the kernel's residuals
+    # against the backward with the twin's.
+    with torch.no_grad():
+        want = ffn.ffn_saved_reference(x, *params, 1e-12, DROP_SEED, DROP_RATE)
+    dy = torch.randn(n, d, generator=g, device=dev).bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (x, *masters)]
+    y = ffn.fused_ffn_saved(*leaves, 1e-12, rate=DROP_RATE, seed=DROP_SEED)
+    _assert_close("fused_ffn_saved wrapper y on fp32 parameters", y, want[0], **FFN_TOL)
+    err = max(err, _max_err(y, want[0]))
+    got_grads = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    if any(a.dtype != leaf.dtype for a, leaf in zip(got_grads, leaves)):
+        raise AssertionError("fused_ffn_saved: a gradient is not in its parameter's dtype")
+
+    class _Ctx:
+        saved_tensors = (x, want[1], want[2], want[3], params[0], params[2], params[4])
+        args = (DROP_SEED, DROP_RATE)
+
+    with torch.no_grad():
+        want_grads = ffn._FusedFFNSaved.backward(_Ctx, dy)[:7]
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dx", "dw1", "db1", "dw2", "db2", "dg", "dbt"), got_grads, want_grads):
+        scale = w.float().abs().max().item()
+        _assert_close(f"fused_ffn_saved {name}", a, w.to(a.dtype), atol=FFN_GRAD_RTOL * scale,
+                      rtol=FFN_GRAD_RTOL)
+
+    with torch.no_grad():
+        ms = _time_ms(lambda: ffn._launch(x, *params, 1e-12, DROP_SEED, DROP_RATE, saved=True))
+        plain_ms = _time_ms(lambda: ffn.ffn_saved_reference(x, *params, 1e-12, DROP_SEED,
+                                                            DROP_RATE))
+    bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
+    print(f"fused_ffn_saved backward (four matmuls + elementwise, plain PyTorch): {bwd_ms:.3f} ms")
+    # inputs x, W1, W2 and the small vectors; outputs y, h1, yhat, rsig
+    nbytes = (3 * n * d + n * f + 2 * d * f) * 2 + (f + 3 * d + n) * 4
+    bound_ms, bound_by = _bound(4 * n * d * f, nbytes)
+    return _record("fused_ffn_saved", "fused_ffn.cu", "fused_ffn.py:307",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+
+
+def _scatter_inputs(dev):
     from vibertgrid_tpu_torch.entry import make_batch
-    from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter
-    from vibertgrid_tpu_torch.ops.rasterize import bertgrid_scatter
 
     batch = make_batch(B, H, W, T, S, VOCAB, seed=3, device=dev)
     boxes = batch.boxes.clone()
@@ -157,8 +374,18 @@ def check_scatter(dev):
     boxes[:, 1] = edge(W - 40, H - 20, W, H)       # the bottom-right corner
     boxes[:, 2] = edge(W - 16, 8, W + 64, 40)      # past the right edge
     boxes[:, 3] = edge(3, 5, 11, 9)                # inside a single cell
+    boxes[:, 4] = edge(100, 100, 140, 140)         # fully covered by the next
+    boxes[:, 5] = edge(96, 96, 160, 160)
     mask = batch.box_mask.clone()
-    mask[:, 5::7] = False                                # masked boxes
+    mask[:, 6::7] = False                          # masked boxes
+    return boxes, mask
+
+
+def check_scatter(dev):
+    from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter
+    from vibertgrid_tpu_torch.ops.rasterize import bertgrid_scatter
+
+    boxes, mask = _scatter_inputs(dev)
     g = torch.Generator(device=dev).manual_seed(3)
     emb = torch.randn(B, S, 768, generator=g, device=dev).bfloat16()
     kw = dict(height=H // 8, width=W // 8, stride=8)
@@ -170,10 +397,65 @@ def check_scatter(dev):
     plain_ms = _time_ms(lambda: bertgrid_scatter(emb, boxes, mask, **kw))
     nbytes = got.numel() * 2 + emb.numel() * 2 + boxes.numel() * 4 + mask.numel()
     bound_ms, bound_by = _bound(0, nbytes)
-    return dict(name="bertgrid_scatter", route="cuda",
-                source="vibertgrid_tpu_torch/csrc/bertgrid_scatter.cu",
-                replaces="vibertgrid_tpu/ops/pallas_scatter.py:39", max_abs_err=0.0,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return _record("bertgrid_scatter", "bertgrid_scatter.cu", "pallas_scatter.py:39",
+                   max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+
+
+def check_scatter_bwd(dev):
+    from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter, scatter_backward_reference
+    from vibertgrid_tpu_torch.ops.rasterize import box_winner_map
+
+    boxes, mask = _scatter_inputs(dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    # a ragged shape in fp32 and in bf16, then the flagship's
+    for height, width, d, dt in ((20, 12, 76, torch.float32), (20, 12, 76, torch.bfloat16),
+                                 (H // 8, W // 8, 768, torch.bfloat16)):
+        emb = torch.randn(B, S, d, generator=g, device=dev).to(dt).requires_grad_()
+        d_out = torch.randn(B, height, width, d, generator=g, device=dev).to(dt)
+        out = grid_scatter(emb, boxes, mask, height=height, width=width, stride=8)
+        (got,) = torch.autograd.grad(out, emb, d_out, retain_graph=True)
+        want = scatter_backward_reference(d_out, boxes, mask, stride=8)
+        torch.cuda.synchronize()
+        # fp32 sums of up to a page of bf16 rows in another order, then one
+        # rounding to bf16: one bf16 ulp of the result.
+        tol = FP32_KERNEL_TOL if dt == torch.float32 else dict(atol=2 ** -7, rtol=2 ** -7)
+        _assert_close(f"bertgrid_scatter_bwd {height}x{width}x{d} {dt}", got, want, **tol)
+        if not bool((got[~mask] == 0).all()) or not bool((got[:, 4] == 0).all()):
+            raise AssertionError("bertgrid_scatter_bwd: masked or covered segment got a gradient")
+    ms = _time_ms(lambda: torch.autograd.grad(out, emb, d_out, retain_graph=True))
+    with torch.no_grad():
+        plain_ms = _time_ms(lambda: scatter_backward_reference(d_out, boxes, mask, stride=8))
+    # the rows of the cells that some segment won are read once; d_emb written
+    won = int((box_winner_map(boxes, mask, height=height, width=width, stride=8) > 0).sum())
+    nbytes = won * d * 2 + emb.numel() * 2 + boxes.numel() * 4 + mask.numel()
+    bound_ms, bound_by = _bound(0, nbytes)
+    return _record("bertgrid_scatter_bwd", "bertgrid_scatter_bwd.cu", "pallas_scatter.py:75",
+                   max_abs_err=_max_err(got, want), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def _device_time_table(fn, wall_s, what):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(
+        ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()),
+        key=lambda r: -r[1],
+    )
+    total = sum(r[1] for r in rows)
+    print(f"device time by kernel, {what}: total {total / 1e3:.2f} ms "
+          f"(wall {wall_s * 1e3:.2f} ms)")
+    for key, us, count in rows[:15]:
+        print(f"  {us / 1e3:8.3f} ms {100 * us / max(total, 1):5.1f}%  x{count:<4d} {key[:90]}")
+
+
+def _assert_launches(records, launches, want, what):
+    if launches != want:
+        raise AssertionError(f"{what} launches {launches}, expected {want}")
+    for r in records:
+        if want[r["name"]]:
+            r["launches"] = launches[r["name"]]
 
 
 def flagship_forward(dev, records):
@@ -186,45 +468,100 @@ def flagship_forward(dev, records):
     ).eval()
     batch = make_batch(B, H, W, T, S, VOCAB, seed=0, device=dev)
 
-    kernels.reset_launch_counts()
-    pred = model(batch).pred_label
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    want = {"flash_attention": 12, "fused_ffn": 12, "bertgrid_scatter": 1}
-    if launches != want:
-        raise AssertionError(f"main path launches {launches}, expected {want}")
-    for r in records:
-        r["launches"] = launches[r["name"]]
-    if pred.shape != (B, S, 5) or not bool(torch.isfinite(pred).all()):
-        raise AssertionError(f"pred_label bad: shape {tuple(pred.shape)}")
-    row_err = (pred.sum(-1) - 1).abs().max().item()
-    if row_err > 1e-5:
-        raise AssertionError(f"pred_label rows do not sum to 1 (max err {row_err})")
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        pred = model(batch).pred_label
+        torch.cuda.synchronize()
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want.update(flash_attention=12, fused_ffn=12, bertgrid_scatter=1)
+        _assert_launches(records, dict(kernels.LAUNCHES), want, "inference forward")
+        if pred.shape != (B, S, 5) or not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"pred_label bad: shape {tuple(pred.shape)}")
+        row_err = (pred.sum(-1) - 1).abs().max().item()
+        if row_err > 1e-5:
+            raise AssertionError(f"pred_label rows do not sum to 1 (max err {row_err})")
 
-    iters = 10
-    model(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        model(batch)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / iters
-    print(f"flagship forward bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/batch, "
-          f"{B / dt:.1f} docs/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        iters = 10
         model(batch)
         torch.cuda.synchronize()
-    rows = sorted(
-        ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()),
-        key=lambda r: -r[1],
-    )
-    total = sum(r[1] for r in rows)
-    print(f"device time by kernel, one forward: total {total / 1e3:.2f} ms "
-          f"(wall {dt * 1e3:.2f} ms)")
-    for key, us, count in rows[:15]:
-        print(f"  {us / 1e3:8.3f} ms {100 * us / max(total, 1):5.1f}%  x{count:<4d} {key[:90]}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        print(f"flagship forward bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/batch, "
+              f"{B / dt:.1f} docs/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        _device_time_table(lambda: model(batch), dt, "one forward")
+
+    # The same evaluation forward with autograd recording: the encoder takes
+    # the saved-residual FFN (the same kernel body), so a gradient can be asked.
+    kernels.reset_launch_counts()
+    pred_grad = model(batch).pred_label
+    torch.cuda.synchronize()
+    want.update(fused_ffn=0, fused_ffn_saved=12)
+    if dict(kernels.LAUNCHES) != want:
+        raise AssertionError(f"forward under autograd launches {dict(kernels.LAUNCHES)}")
+    err = _max_err(pred_grad, pred)
+    print(f"evaluation forward under autograd vs under no_grad: max |diff| {err:.3e}")
+    if not (pred_grad.requires_grad and err <= 2 ** -8):  # bf16 logits, probabilities <= 1
+        raise AssertionError(f"forward under autograd differs from the one under no_grad: {err}")
+    return B / dt, dt
+
+
+def flagship_train(dev, records):
+    from vibertgrid_tpu_torch.entry import train_entry
+    from vibertgrid_tpu_torch.ops import kernels
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    state, train_step, batch = train_entry(device=dev, seed=0)
+    model = state.model
+    seeds = SeedStream(0)
+    watch = {name: model.get_parameter(name) for name in (
+        "bert_model.layer.0.intermediate.weight", "bert_model.word_embeddings.weight",
+        "backbone.stem_conv.weight", "field_type_head.category_net.out.weight",
+        "semantic_segmentation_head.encoder.conv1.weight")}
+    stats = {name: model.get_buffer(name) for name in (
+        "backbone.stem_bn.running_mean", "late_fusion.roi_embedding.bn1.running_var",
+        "semantic_segmentation_head.encoder.bn2.running_var")}
+    before = {k: v.detach().clone() for k, v in {**watch, **stats}.items()}
+
+    kernels.reset_launch_counts()
+    _, loss = train_step(state, batch, seeds)
+    torch.cuda.synchronize()
+    want = dict(flash_attention=12, flash_attention_bwd=12, fused_ffn=0, fused_ffn_saved=12,
+                bertgrid_scatter=1, bertgrid_scatter_bwd=1)
+    _assert_launches(records, dict(kernels.LAUNCHES), want, "train step")
+    losses = [loss.item()]
+    if not all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+               if p.grad is not None):
+        raise AssertionError("train step: a gradient is not finite")
+    no_grad = [n for n, p in model.named_parameters() if p.grad is None]
+    if no_grad:
+        raise AssertionError(f"train step: no gradient reached {no_grad[:5]}")
+    for name, tensor in {**watch, **stats}.items():
+        if torch.equal(tensor, before[name]):
+            raise AssertionError(f"train step left {name} unchanged")
+
+    for _ in range(2):  # warm steps two and three
+        losses.append(train_step(state, batch, seeds)[1].item())
+    iters = 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        _, loss = train_step(state, batch, seeds)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    losses.append(loss.item())
+    if not all(x == x and abs(x) < 1e4 for x in losses):
+        raise AssertionError(f"train step: losses {losses}")
+    print(f"flagship train step bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/step, "
+          f"{B / dt:.1f} docs/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss at steps 1-3 and "
+          f"{3 + iters}: {', '.join(f'{x:.4f}' for x in losses)}")
+    _device_time_table(lambda: train_step(state, batch, seeds), dt, "one train step")
     return B / dt, dt
 
 
@@ -236,14 +573,47 @@ def fp32_card_vs_host(dev):
     host = ViBERTgridNet(cfg, device="cpu", generator=torch.Generator().manual_seed(4)).eval()
     card = copy.deepcopy(host).to(dev)
     batch = make_batch(2, H, W, T, S, VOCAB, seed=5, device="cpu")
-    want = host(batch).pred_label
-    got = card(batch.to(dev)).pred_label.cpu()
+    with torch.no_grad():
+        want = host(batch).pred_label
+        got = card(batch.to(dev)).pred_label.cpu()
     err = _max_err(got, want)
     print(f"fp32 forward B=2, card vs host: max |diff| {err:.3e} "
           f"(tol {FP32_FORWARD_ATOL}), probabilities in [{want.min().item():.3f}, "
           f"{want.max().item():.3f}]")
     if not err <= FP32_FORWARD_ATOL:
         raise AssertionError(f"fp32 card forward differs from host: {err}")
+
+
+def fp32_train_card_vs_host(dev):
+    """One train step in fp32 at batch 2, dropout on, the same seeds: the
+    card (kernels, cuDNN) against the host CPU (twins) from one state."""
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, TRAIN_SHAPE, train_entry
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    cfg = dataclasses.replace(FLAGSHIP_TRAIN, compute_dtype=torch.float32)
+    shape = dict(TRAIN_SHAPE, b=2)
+    host_state, train_step, batch = train_entry("cpu", seed=6, config=cfg, shape=shape)
+    card_state = copy.deepcopy(host_state)
+    card_state.model.to(dev)
+    for st in card_state.optimizer.state.values():
+        for key, value in st.items():
+            st[key] = value.to(dev)
+    _, want = train_step(host_state, batch, SeedStream(7))
+    _, got = train_step(card_state, batch.to(dev), SeedStream(7))
+    want, got = want.item(), got.item()
+    print(f"fp32 train step B=2, card vs host: loss {got:.6f} vs {want:.6f}")
+    if not abs(got - want) <= FP32_TRAIN_LOSS_RTOL * abs(want):
+        raise AssertionError(f"fp32 train step: loss on the card {got}, on the host {want}")
+    for name in ("bert_model.layer.0.attention.query.weight",
+                 "bert_model.layer.11.intermediate.weight",
+                 "bert_model.word_embeddings.weight", "backbone.stem_conv.weight",
+                 "backbone.early_fusion.weight", "field_type_head.category_net.out.weight"):
+        g_host = host_state.model.get_parameter(name).grad
+        g_card = card_state.model.get_parameter(name).grad.cpu()
+        err = ((g_card - g_host).norm() / g_host.norm()).item()
+        print(f"  grad {name}: |card - host| / |host| = {err:.3e}")
+        if not err <= FP32_TRAIN_GRAD_RTOL:
+            raise AssertionError(f"fp32 train step: gradient of {name} differs by {err}")
 
 
 def main() -> int:
@@ -257,13 +627,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    uuid = subprocess.run(["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.split()[0]
+    print(f"host {socket.gethostname()}, card {uuid}")
     t0 = time.perf_counter()
     kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
-    records = [check_attention(dev), check_ffn(dev), check_scatter(dev)]
+    records = [check(dev) for check in (
+        check_attention, check_attention_bwd, check_ffn, check_ffn_saved, check_scatter,
+        check_scatter_bwd)]
     flagship_forward(dev, records)
+    flagship_train(dev, records)
     fp32_card_vs_host(dev)
+    fp32_train_card_vs_host(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

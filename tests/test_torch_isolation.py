@@ -39,6 +39,12 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def test_scan_covers_every_sub_package():
+    scanned = {p.relative_to(PORT).parts[0] for p in _port_files() if p.is_relative_to(PORT)}
+    assert {"models", "ops", "train", "entry.py", "convert.py"} <= scanned
+    assert PORT / "train" / "state.py" in _port_files()
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_nothing_of_jax(path):
     for name in _imports(path):
@@ -50,7 +56,8 @@ def test_port_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
         "import vibertgrid_tpu_torch.entry, vibertgrid_tpu_torch.convert\n"
-        "import vibertgrid_tpu_torch.models.vibertgrid\n"
+        "import vibertgrid_tpu_torch.models.vibertgrid, vibertgrid_tpu_torch.train\n"
+        "import vibertgrid_tpu_torch.ops.losses, vibertgrid_tpu_torch.ops.dropout\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -77,6 +84,7 @@ def test_entry_on_cpu_runs_the_flagship_forward():
 
     forward, (model, batch) = entry(device="cpu")
     pred = forward(model, batch)
+    assert not pred.requires_grad
     assert pred.shape == (1, 32, 5)
     assert torch.isfinite(pred).all()
     np.testing.assert_allclose(pred.sum(-1).numpy(), 1.0, atol=1e-5)
@@ -105,18 +113,45 @@ def test_wrappers_use_twins_on_cpu_and_count_no_launch():
     torch.testing.assert_close(grid_scatter(emb, boxes, mask, height=4, width=4),
                                bertgrid_scatter(emb, boxes, mask, height=4, width=4),
                                rtol=0, atol=0)
-    assert kernels.LAUNCHES == {"flash_attention": 0, "fused_ffn": 0, "bertgrid_scatter": 0}
+    # the backward wrappers too: gradients on CPU tensors come from the twins
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, bias, 0.25, 2, rate=0.1, seed=3).sum().backward()
+    emb.requires_grad_()
+    grid_scatter(emb, boxes, mask, height=4, width=4).sum().backward()
+    assert leaves[0].grad is not None and emb.grad is not None
+    assert set(kernels.LAUNCHES) == {
+        "flash_attention", "flash_attention_bwd", "fused_ffn", "fused_ffn_saved",
+        "bertgrid_scatter", "bertgrid_scatter_bwd"}
+    assert not any(kernels.LAUNCHES.values())
 
 
 def test_dropout_rates_raise():
+    """Dropout is ported: a rate above 0 runs (on CPU through the twins). What
+    still raises is a dropout site that is given no seed stream."""
+    from vibertgrid_tpu_torch.models.bert import TextEncoder, TextEncoderConfig
     from vibertgrid_tpu_torch.ops.flash_attention import flash_attention
     from vibertgrid_tpu_torch.ops.fused_ffn import fused_ffn
+    from vibertgrid_tpu_torch.train.seeds import ReplaySeeds, SeedStream
 
-    x = torch.zeros(1, 4, 8)
-    with pytest.raises(NotImplementedError):
-        flash_attention(x, x, x, torch.zeros(1, 4), 1.0, 2, rate=0.1)
-    with pytest.raises(NotImplementedError):
-        fused_ffn(x[0], None, None, None, None, None, None, 1e-12, rate=0.1)
+    x = torch.ones(1, 4, 8)
+    out = flash_attention(x, x, x, torch.zeros(1, 4), 1.0, 2, rate=0.5, seed=1)
+    assert not torch.equal(out, flash_attention(x, x, x, torch.zeros(1, 4), 1.0, 2))
+    w = torch.eye(64)
+    ffn = (torch.ones(3, 64), torch.cat([w, w]), torch.zeros(128), torch.cat([w, w], 1),
+           torch.zeros(64), torch.ones(64), torch.zeros(64), 1e-12)
+    assert not torch.equal(fused_ffn(*ffn, rate=0.5, seed=1), fused_ffn(*ffn))
+
+    encoder = TextEncoder(TextEncoderConfig.tiny(), device="cpu")
+    ids, mask = torch.randint(3, 500, (1, 12)), torch.ones(1, 12, dtype=torch.int32)
+    with pytest.raises(ValueError, match="seed stream"):
+        encoder(ids, mask, deterministic=False)
+    # embedding + 2 layers x (attention, attention output, FFN) = 7 draws
+    seeds = ReplaySeeds(range(7))
+    encoder(ids, mask, deterministic=False, seeds=seeds)
+    with pytest.raises(IndexError):
+        seeds.next()
+    a, b = SeedStream(5), SeedStream(5)
+    assert [a.next() for _ in range(4)] == [b.next() for _ in range(4)]
 
 
 def test_unported_paths_raise():
@@ -127,12 +162,51 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError, match="item 11"):
             ViBERTgridNet(ModelConfig(bert_version="tiny-bert-test", classifier_mode=mode),
                           device="cpu")
+    # training and the losses are ported: the simplified model takes both
     net = ViBERTgridNet(ModelConfig(bert_version="tiny-bert-test"), device="cpu")
     batch = make_batch(1, 64, 64, 510, 4, 512, device="cpu")
-    with pytest.raises(NotImplementedError):
-        net(batch, train=True)
-    with pytest.raises(NotImplementedError):
-        net(batch, compute_loss=True)
+    with torch.no_grad():
+        out = net(batch, compute_loss=True)
+    assert torch.isfinite(out.total_loss) and out.pred_mask.shape == (1, 64, 64, 3)
+    # an evaluation forward under autograd takes the saved-residual FFN: the
+    # same prediction as under no_grad, and a gradient for the parameters
+    with torch.no_grad():
+        want = net(batch).pred_label
+    pred = net(batch).pred_label
+    torch.testing.assert_close(pred.detach(), want, rtol=0, atol=1e-6)
+    pred.square().sum().backward()
+    assert net.bert_model.layer[0].intermediate.weight.grad.abs().sum() > 0
+
+
+def test_train_entry_on_cpu_takes_one_step():
+    import dataclasses
+
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, train_entry
+    from vibertgrid_tpu_torch.ops import kernels
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            train_entry()
+    config = dataclasses.replace(FLAGSHIP_TRAIN, bert_version="tiny-bert-test",
+                                 backbone="resnet_18_fpn", compute_dtype=torch.float32)
+    state, train_step, batch = train_entry(
+        device="cpu", config=config, shape=dict(b=2, h=64, w=64, t=510, s=6, vocab=512))
+    model = state.model
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    kernels.reset_launch_counts()
+    state, loss = train_step(state, batch, SeedStream(0))
+    assert torch.isfinite(loss) and state.step == 1 and state.optimizer.count == 1
+    assert not any(kernels.LAUNCHES.values())
+    after = model.state_dict()
+    for name in ("bert_model.layer.1.output.weight", "backbone.stem_conv.weight",
+                 "semantic_segmentation_head.encoder.class_proj.bias",
+                 "backbone.stem_bn.running_mean", "late_fusion.roi_embedding.bn2.running_var"):
+        assert not torch.equal(after[name], before[name]), name
+    sgd = state.optimizer.state[model.backbone.stem_conv.weight]["momentum"]
+    adam = state.optimizer.state[model.bert_model.layer[0].output.weight]
+    assert sgd.dtype == torch.bfloat16 and sgd.abs().sum() > 0
+    assert adam["mu"].dtype == torch.bfloat16 and adam["nu"].abs().sum() > 0
 
 
 @pytest.fixture
@@ -146,7 +220,9 @@ def cuda_device():
 def test_kernels_match_twins_on_cuda(cuda_device):
     import chip_smoke
 
-    for check in (chip_smoke.check_attention, chip_smoke.check_ffn, chip_smoke.check_scatter):
+    for check in (chip_smoke.check_attention, chip_smoke.check_attention_bwd,
+                  chip_smoke.check_ffn, chip_smoke.check_ffn_saved, chip_smoke.check_scatter,
+                  chip_smoke.check_scatter_bwd):
         record = check(cuda_device)
         assert record["ms"] > 0
 
@@ -161,4 +237,8 @@ def test_wrapper_counts_launches_on_cuda(cuda_device):
     boxes = torch.tensor([[[0, 0, 16, 16], [8, 8, 32, 24]]], dtype=torch.int32, device=cuda_device)
     grid_scatter(emb, boxes, torch.ones(1, 2, dtype=torch.bool, device=cuda_device),
                  height=4, width=4)
-    assert kernels.LAUNCHES["bertgrid_scatter"] == 1
+    assert kernels.LAUNCHES["bertgrid_scatter"] == 1 and kernels.LAUNCHES["bertgrid_scatter_bwd"] == 0
+    emb.requires_grad_()
+    grid_scatter(emb, boxes, torch.ones(1, 2, dtype=torch.bool, device=cuda_device),
+                 height=4, width=4).sum().backward()
+    assert kernels.LAUNCHES["bertgrid_scatter_bwd"] == 1

@@ -144,7 +144,9 @@ def _full_forward_pair(grid_mode):
     variables = _perturb(
         jnet.init(
             {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
-            jbatch, train=False, compute_loss=False, key=jax.random.PRNGKey(2),
+            # with the losses, so that the variables hold the auxiliary
+            # segmentation head, which the port's model always has
+            jbatch, train=False, compute_loss=True, key=jax.random.PRNGKey(2),
         )
     )
     # Eval BN with random statistics does not normalise, so the logits of a
@@ -157,7 +159,8 @@ def _full_forward_pair(grid_mode):
                    key=jax.random.PRNGKey(0)).pred_label
     )
     tnet = _load(ViBERTgridNet(ModelConfig(**kw), device="cpu"), variables)
-    got = tnet(make_batch(**shape, device="cpu")).pred_label.numpy()
+    with torch.no_grad():
+        got = tnet(make_batch(**shape, device="cpu")).pred_label.numpy()
     return got, want
 
 

@@ -219,13 +219,15 @@ def test_norms_match_jax():
               "batch_stats": {"mean": mean, "var": var}}
     mask = jnp.ones(3, bool)
     nchw = _t(x).permute(0, 3, 1, 2)
+    tmask = torch.ones(3, dtype=torch.bool)
     cases = [
         (jnorm.LayerNorm(epsilon=1e-12), (jnp.asarray(x),),
-         norm.LayerNorm(8, eps=1e-12), _t(x), False),
-        (jnorm.BatchNorm(), (jnp.asarray(x),), norm.BatchNorm(8), nchw, True),
-        (jnorm.MaskedBatchNorm(), (jnp.asarray(x), mask), norm.MaskedBatchNorm(8), nchw, True),
+         norm.LayerNorm(8, eps=1e-12), (_t(x),), False),
+        (jnorm.BatchNorm(), (jnp.asarray(x),), norm.BatchNorm(8), (nchw,), True),
+        (jnorm.MaskedBatchNorm(), (jnp.asarray(x), mask), norm.MaskedBatchNorm(8),
+         (nchw, tmask), True),
     ]
-    for jm, jargs, tm, tx, channels_first in cases:
+    for jm, jargs, tm, targs, channels_first in cases:
         want = np.asarray(jm.apply(params if channels_first else {"params": params["params"]},
                                    *jargs))
         with torch.no_grad():
@@ -234,7 +236,7 @@ def test_norms_match_jax():
             if channels_first:
                 tm.running_mean.copy_(_t(mean))
                 tm.running_var.copy_(_t(var))
-            got = tm(tx)
+            got = tm(*targs)
         if channels_first:
             got = got.permute(0, 2, 3, 1)
         np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=1e-6)

@@ -56,6 +56,33 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Splitmix32-style finalizer of (seed, counter), the stateless draw behind
+// every dropout mask (ops/dropout.py::splitmix32 is the same function on
+// tensors). Each step is a bijection on uint32.
+__device__ __forceinline__ uint32_t splitmix32(uint32_t x, uint32_t seed) {
+  x ^= seed * 0x9E3779B9u;
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// Dropout of one fused kernel call: keep where the hash of the element's
+// flat index reaches `threshold` = uint32(rate * 2^32). `on` is 0 at rate 0.
+struct Dropout {
+  int on;
+  uint32_t seed;
+  uint32_t threshold;
+  float scale;  // attention: 1 / (1 - rate), a factor; FFN: 1 - rate, a divisor
+  __device__ __forceinline__ bool keep(uint32_t index) const {
+    return splitmix32(index, seed) >= threshold;
+  }
+};
+
+// Row stride of the attention dropout draw: the TPU kernel pads T to a
+// multiple of 128 and hashes row * padded_T + col, so the port hashes the
+// same index without padding anything.
+__host__ __device__ constexpr int round_up128(int t) { return (t + 127) / 128 * 128; }
+
 // Python's floor division for a positive divisor (boxes may in principle be
 // negative; `//` in the reference rounds toward minus infinity).
 __device__ __forceinline__ int floor_div(int a, int b) {

@@ -16,7 +16,9 @@
 // the fp32 scores of the block's query rows against all keys in shared
 // memory (64 KB for 32 rows at T=512). Phase 2 takes each row's max and sum
 // and normalises, rounding p to the storage dtype as the TPU kernel does
-// before its p.v product (flash_attention.py:123). Phase 3 streams V tiles
+// before its p.v product (flash_attention.py:123); in training it first drops
+// probabilities by the stateless hash the backward kernel
+// (flash_attention_bwd.cu) regenerates. Phase 3 streams V tiles
 // and accumulates p.v in fp32. Keys past T get bias -1e9 (zero weight, as
 // the TPU kernel's -1e9 padding gives) and query rows past T are not
 // stored, so any T <= 512 works without the caller padding.
@@ -55,7 +57,8 @@ template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, int T_len, int H, int D, int Tp, float scale) {
+                 T* __restrict__ out, int T_len, int H, int D, int Tp, float scale,
+                 vg::Dropout drop) {
   extern __shared__ float smem[];
   const int ld = D + 1;  // odd stride: lanes reading different rows hit different banks
   float* Qs = smem;             // [kBQ][ld]
@@ -67,6 +70,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = (size_t)b * T_len * HD + (size_t)h * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = warp * 8;  // this warp's 8 query rows within the tile
+  drop.seed += (uint32_t)(b * H + h);
+  const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
 
   for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, t = q0 + r;
@@ -114,7 +119,12 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l += e;
     }
     l = vg::warp_sum(l);
-    for (int c = lane; c < Tp; c += 32) row[c] = vg::round_through<T>(row[c] / l);
+    const uint32_t drop_row = (uint32_t)(q0 + row0 + i) * drop_ld;
+    for (int c = lane; c < Tp; c += 32) {
+      float p = row[c] / l;
+      if (drop.on) p = drop.keep(drop_row + c) ? p * drop.scale : 0.f;
+      row[c] = vg::round_through<T>(p);
+    }
   }
 
   // Phase 3: out = p v. Thread owns rows row0..row0+7, columns lane + 32 j.
@@ -153,7 +163,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DJ>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
                    void* out, int B, int T_len, int H, int D, float scale,
-                   cudaStream_t stream) {
+                   vg::Dropout drop, cudaStream_t stream) {
   const int Tp = (T_len + kBK - 1) / kBK * kBK;
   const size_t smem = ((size_t)(kBQ + kBK) * (D + 1) + (size_t)kBQ * Tp) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -162,17 +172,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
   attention_kernel<T, DJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<T*>(out), T_len, H, D, Tp, scale);
+      static_cast<T*>(out), T_len, H, D, Tp, scale, drop);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const float* bias,
                      void* out, int B, int T_len, int H, int D, float scale,
-                     cudaStream_t stream) {
-  if (D <= 32) return launch<T, 1>(q, k, v, bias, out, B, T_len, H, D, scale, stream);
-  if (D <= 64) return launch<T, 2>(q, k, v, bias, out, B, T_len, H, D, scale, stream);
-  if (D <= 128) return launch<T, 4>(q, k, v, bias, out, B, T_len, H, D, scale, stream);
+                     vg::Dropout drop, cudaStream_t stream) {
+  if (D <= 32) return launch<T, 1>(q, k, v, bias, out, B, T_len, H, D, scale, drop, stream);
+  if (D <= 64) return launch<T, 2>(q, k, v, bias, out, B, T_len, H, D, scale, drop, stream);
+  if (D <= 128) return launch<T, 4>(q, k, v, bias, out, B, T_len, H, D, scale, drop, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -221,11 +231,15 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t bas
   }
 }
 
-template <int D>
+// DROP: compiled with the dropout of the probabilities (training) or
+// without it (inference keeps the registers and the code of the plain
+// kernel).
+template <int D, bool DROP>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
-                 bf16* __restrict__ out, int T_len, int H, int Tp, float scale) {
+                 bf16* __restrict__ out, int T_len, int H, int Tp, float scale,
+                 vg::Dropout drop) {
   using L = Smem<D>;
   constexpr int kLd = L::kLd, kLdO = L::kLdO;
   constexpr int DF = D / 16;                 // output fragments per row block
@@ -243,6 +257,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = (size_t)b * T_len * HD + (size_t)h * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_tiles = Tp / kBK, total = 2 * n_tiles;
+  drop.seed += (uint32_t)(b * H + h);
+  const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
   auto prefetch = [&](int s) {
     bf16* dst = KVs + (s & 1) * (L::kTile / 2);
     if (s < n_tiles)
@@ -308,9 +324,15 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           l = vg::warp_sum(l);
           __syncwarp();
           bf16* prow = reinterpret_cast<bf16*>(row);
+          const uint32_t drop_row = (uint32_t)(q0 + warp * 4 + i) * drop_ld;
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
-            if (j < nj) prow[lane + 32 * j] = __float2bfloat16_rn(vals[j] / l);
+          for (int j = 0; j < 16; ++j) {
+            if (j < nj) {
+              float p = vals[j] / l;
+              if (DROP) p = drop.keep(drop_row + lane + 32 * j) ? p * drop.scale : 0.f;
+              prow[lane + 32 * j] = __float2bfloat16_rn(p);
+            }
+          }
         }
       }
     } else {
@@ -346,46 +368,59 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out,
-                   int B, int T_len, int H, float scale, cudaStream_t stream) {
+                   int B, int T_len, int H, float scale, vg::Dropout drop, cudaStream_t stream) {
   const int Tp = (T_len + kBK - 1) / kBK * kBK;
   const int smem = Smem<D>::bytes(Tp);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attention_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T_len + kRows - 1) / kRows, H, B);
-  attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+  attention_kernel<D, DROP><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, static_cast<bf16*>(out), T_len, H, Tp, scale);
+      bias, static_cast<bf16*>(out), T_len, H, Tp, scale, drop);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out,
+                   int B, int T_len, int H, float scale, vg::Dropout drop, cudaStream_t stream) {
+  return drop.on ? launch<D, true>(q, k, v, bias, out, B, T_len, H, scale, drop, stream)
+                 : launch<D, false>(q, k, v, bias, out, B, T_len, H, scale, drop, stream);
 }
 
 }  // namespace tc
 
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, const float* bias,
                           void* out, int B, int T_len, int H, int D, float scale,
-                          cudaStream_t st) {
+                          vg::Dropout drop, cudaStream_t st) {
   switch (D) {
-    case 32: return tc::launch<32>(q, k, v, bias, out, B, T_len, H, scale, st);
-    case 64: return tc::launch<64>(q, k, v, bias, out, B, T_len, H, scale, st);
-    case 128: return tc::launch<128>(q, k, v, bias, out, B, T_len, H, scale, st);
+    case 32: return tc::launch<32>(q, k, v, bias, out, B, T_len, H, scale, drop, st);
+    case 64: return tc::launch<64>(q, k, v, bias, out, B, T_len, H, scale, drop, st);
+    case 128: return tc::launch<128>(q, k, v, bias, out, B, T_len, H, scale, drop, st);
     default:
-      return dispatch<__nv_bfloat16>(q, k, v, bias, out, B, T_len, H, D, scale, st);
+      return dispatch<__nv_bfloat16>(q, k, v, bias, out, B, T_len, H, D, scale, drop, st);
   }
 }
 
 }  // namespace
 
 // q, k, v, out: [B, T, H*D] contiguous, dtype 0 = fp32, 1 = bf16;
-// bias: [B, T] fp32 additive key bias. T <= 512, D <= 128.
+// bias: [B, T] fp32 additive key bias. T <= 512, D <= 128. Dropout of the
+// probabilities when dropout != 0: element (row, col) of head (b, h) is kept
+// where splitmix32(row * round_up(T, 128) + col, seed + b * H + h) >=
+// threshold, and kept values are scaled by keep_scale = 1 / (1 - rate),
+// after the normalisation and before p is rounded to the storage dtype.
 extern "C" int vg_flash_attention(const void* q, const void* k, const void* v,
                                   const void* bias, void* out, int B, int T_len, int H,
-                                  int D, float scale, int dtype, void* stream) {
+                                  int D, float scale, int dtype, int dropout, int seed,
+                                  unsigned threshold, float keep_scale, void* stream) {
   if (T_len < 1 || T_len > 512) return cudaErrorInvalidValue;
   const float* bs = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, bs, out, B, T_len, H, D, scale, st);
-  if (dtype == 1) return dispatch_bf16(q, k, v, bs, out, B, T_len, H, D, scale, st);
+  const vg::Dropout drop{dropout, (uint32_t)seed, threshold, keep_scale};
+  if (dtype == 0) return dispatch<float>(q, k, v, bs, out, B, T_len, H, D, scale, drop, st);
+  if (dtype == 1) return dispatch_bf16(q, k, v, bs, out, B, T_len, H, D, scale, drop, st);
   return cudaErrorInvalidValue;
 }

@@ -2,7 +2,12 @@
 // over rows of x [N, D], with W1 [F, D] and W2 [D, F] in nn.Linear layout.
 //
 // Replaces: vibertgrid_tpu/ops/fused_ffn.py::_ffn_kernel (the inference
-// fused_ffn). The TPU kernel kept W1, W2 and a whole [R, 4D] fp32
+// fused_ffn) and, with the SAVED template flag, ::_ffn_saved_kernel (the
+// training forward, which also writes the pre-gelu intermediate h1, the
+// normalised rows yhat and each row's inverse deviation rsig so the backward
+// needs no rematerialisation). One body serves both, so they cannot drift.
+// In training the second product's output is dropped by the stateless hash
+// of ops/dropout.py before the residual. The TPU kernel kept W1, W2 and a whole [R, 4D] fp32
 // intermediate in 16 MB of VMEM (_row_tile, fused_ffn.py:180). A Hopper
 // block has 227 KB of shared memory, so this kernel streams the F axis.
 //
@@ -69,13 +74,21 @@ __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.0f + erf_poly(x * 0.70710678118654752f));
 }
 
+// What the saved-residual variant also writes (null otherwise).
+template <typename T>
+struct Saved {
+  T* h1;        // [N, F] x W1^T + b1 before gelu
+  T* yhat;      // [N, D] normalised rows before gamma, beta
+  float* rsig;  // [N] 1 / sqrt(var + eps)
+};
+
 // NJ = D / 32: accumulator columns per thread.
-template <typename T, int NJ>
+template <typename T, int NJ, bool SAVED>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __restrict__ b1,
            const T* __restrict__ w2, const float* __restrict__ b2,
            const float* __restrict__ gamma, const float* __restrict__ beta,
-           T* __restrict__ out, int N, int F, float eps) {
+           T* __restrict__ out, Saved<T> saved, int N, int F, float eps, vg::Dropout drop) {
   constexpr int D = NJ * 32;
   extern __shared__ float smem[];
   float* Xs = smem;                      // [kR][D]
@@ -120,9 +133,12 @@ ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __res
     for (int j = 0; j < 4; ++j) {
       const float bias = b1[c0 + lane + 32 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        Hs[(r0 + i) * kFC + lane + 32 * j] =
-            vg::round_through<T>(gelu_exact(hacc[i][j] + bias));
+      for (int i = 0; i < 4; ++i) {
+        const float pre = hacc[i][j] + bias;
+        if (SAVED && row_base + r0 + i < N)
+          saved.h1[(size_t)(row_base + r0 + i) * F + c0 + lane + 32 * j] = vg::from_f32<T>(pre);
+        Hs[(r0 + i) * kFC + lane + 32 * j] = vg::round_through<T>(gelu_exact(pre));
+      }
     }
 
     // B) acc += h . W2[:, c0:c0+FC]^T.
@@ -155,7 +171,10 @@ ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __res
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = lane + 32 * j;
-      const float res = Xs[(r0 + i) * D + c] + (acc[i][j] + b2[c]);
+      float o = acc[i][j] + b2[c];
+      if (drop.on)
+        o = drop.keep((uint32_t)(row_base + r0 + i) * (uint32_t)D + c) ? o / drop.scale : 0.f;
+      const float res = Xs[(r0 + i) * D + c] + o;
       acc[i][j] = res;
       s1 += res;
       s2 += res * res;
@@ -170,40 +189,59 @@ ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __res
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = lane + 32 * j;
-        out[(size_t)row * D + c] =
-            vg::from_f32<T>((acc[i][j] - mean) * rs * gamma[c] + beta[c]);
+        const float yh = (acc[i][j] - mean) * rs;
+        if (SAVED) saved.yhat[(size_t)row * D + c] = vg::from_f32<T>(yh);
+        out[(size_t)row * D + c] = vg::from_f32<T>(yh * gamma[c] + beta[c]);
       }
+      if (SAVED && lane == 0) saved.rsig[row] = rs;
     }
   }
 }
 
-template <typename T, int NJ>
-cudaError_t launch(const void* x, const void* w1, const float* b1, const void* w2,
-                   const float* b2, const float* g, const float* bt, void* out, int N,
-                   int F, float eps, cudaStream_t stream) {
+// One call's arguments, as the C entry point takes them.
+struct Args {
+  const void *x, *w1;
+  const float* b1;
+  const void* w2;
+  const float *b2, *gamma, *beta;
+  void *out, *h1, *yhat;  // h1 null: the inference kernel
+  float* rsig;
+  int N, D, F;
+  float eps;
+  vg::Dropout drop;
+  cudaStream_t stream;
+};
+
+template <typename T, int NJ, bool SAVED>
+cudaError_t launch(const Args& a) {
   constexpr int D = NJ * 32;
   const size_t smem =
       ((size_t)kR * D + kKT * (kFC + 1) + kR * kFC + (size_t)kKB * (D + 1)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ffn_kernel<T, NJ, SAVED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + kR - 1) / kR);
-  ffn_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), b1, static_cast<const T*>(w2),
-      b2, g, bt, static_cast<T*>(out), N, F, eps);
+  dim3 grid((a.N + kR - 1) / kR);
+  const Saved<T> saved{static_cast<T*>(a.h1), static_cast<T*>(a.yhat), a.rsig};
+  ffn_kernel<T, NJ, SAVED><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.w1), a.b1,
+      static_cast<const T*>(a.w2), a.b2, a.gamma, a.beta, static_cast<T*>(a.out), saved, a.N,
+      a.F, a.eps, a.drop);
   return cudaGetLastError();
 }
 
+template <typename T, int NJ>
+cudaError_t launch(const Args& a) {
+  return a.h1 != nullptr ? launch<T, NJ, true>(a) : launch<T, NJ, false>(a);
+}
+
 template <typename T>
-cudaError_t dispatch(const void* x, const void* w1, const float* b1, const void* w2,
-                     const float* b2, const float* g, const float* bt, void* out, int N,
-                     int D, int F, float eps, cudaStream_t st) {
-  switch (D) {
-    case 64: return launch<T, 2>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
-    case 128: return launch<T, 4>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
-    case 256: return launch<T, 8>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
-    case 512: return launch<T, 16>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
-    case 768: return launch<T, 24>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
+cudaError_t dispatch(const Args& a) {
+  switch (a.D) {
+    case 64: return launch<T, 2>(a);
+    case 128: return launch<T, 4>(a);
+    case 256: return launch<T, 8>(a);
+    case 512: return launch<T, 16>(a);
+    case 768: return launch<T, 24>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -247,13 +285,13 @@ struct Smem {
   static constexpr int kStagesA = D / kKT, kStages = kStagesA + kFC / kKB;
 };
 
-template <int D>
+template <int D, bool SAVED>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
            const float* __restrict__ b1, const bf16* __restrict__ w2,
            const float* __restrict__ b2, const float* __restrict__ gamma,
-           const float* __restrict__ beta, bf16* __restrict__ out, int N, int F,
-           float eps) {
+           const float* __restrict__ beta, bf16* __restrict__ out, Saved<bf16> saved, int N,
+           int F, float eps, vg::Dropout drop) {
   using L = Smem<D>;
   constexpr int NB = D / 128;  // accumulator column fragments per warp
   extern __shared__ __align__(128) unsigned char smem_tc[];
@@ -336,8 +374,10 @@ ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         __syncwarp();
         for (int e = lane; e < kR * 16; e += 32) {
           const int r = e / 16, col = warp * 16 + e % 16;
-          Hb[r * L::kLdHb + col] =
-              __float2bfloat16_rn(gelu_exact(Hf[r * L::kLdHf + col] + b1[c0 + col]));
+          const float pre = Hf[r * L::kLdHf + col] + b1[c0 + col];
+          if (SAVED && row_base + r < N)
+            saved.h1[(size_t)(row_base + r) * F + c0 + col] = __float2bfloat16_rn(pre);
+          Hb[r * L::kLdHb + col] = __float2bfloat16_rn(gelu_exact(pre));
         }
       }
     } else {
@@ -374,7 +414,9 @@ ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
     for (int j = 0; j < D / 32; ++j) {
       const int c = lane + 32 * j;
-      const float res = __bfloat162float(Xs[r * L::kLdX + c]) + (Os[r * L::kLdO + c] + b2[c]);
+      float o = Os[r * L::kLdO + c] + b2[c];
+      if (drop.on) o = drop.keep((uint32_t)row * (uint32_t)D + c) ? o / drop.scale : 0.f;
+      const float res = __bfloat162float(Xs[r * L::kLdX + c]) + o;
       vals[j] = res;
       s1 += res;
       s2 += res * res;
@@ -387,38 +429,43 @@ ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
       for (int j = 0; j < D / 32; ++j) {
         const int c = lane + 32 * j;
-        out[(size_t)row * D + c] = __float2bfloat16_rn((vals[j] - mean) * rs * gamma[c] + beta[c]);
+        const float yh = (vals[j] - mean) * rs;
+        if (SAVED) saved.yhat[(size_t)row * D + c] = __float2bfloat16_rn(yh);
+        out[(size_t)row * D + c] = __float2bfloat16_rn(yh * gamma[c] + beta[c]);
       }
+      if (SAVED && lane == 0) saved.rsig[row] = rs;
     }
   }
 }
 
-template <int D>
-cudaError_t launch(const void* x, const void* w1, const float* b1, const void* w2,
-                   const float* b2, const float* g, const float* bt, void* out, int N,
-                   int F, float eps, cudaStream_t stream) {
+template <int D, bool SAVED>
+cudaError_t launch(const Args& a) {
   constexpr int smem = Smem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ffn_kernel<D, SAVED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  ffn_kernel<D><<<(N + kR - 1) / kR, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
-      static_cast<const bf16*>(w2), b2, g, bt, static_cast<bf16*>(out), N, F, eps);
+  const Saved<bf16> saved{static_cast<bf16*>(a.h1), static_cast<bf16*>(a.yhat), a.rsig};
+  ffn_kernel<D, SAVED><<<(a.N + kR - 1) / kR, kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.w1), a.b1,
+      static_cast<const bf16*>(a.w2), a.b2, a.gamma, a.beta, static_cast<bf16*>(a.out), saved,
+      a.N, a.F, a.eps, a.drop);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const Args& a) {
+  return a.h1 != nullptr ? launch<D, true>(a) : launch<D, false>(a);
 }
 
 }  // namespace tc
 
-cudaError_t dispatch_bf16(const void* x, const void* w1, const float* b1, const void* w2,
-                          const float* b2, const float* g, const float* bt, void* out, int N,
-                          int D, int F, float eps, cudaStream_t st) {
-  switch (D) {
-    case 128: return tc::launch<128>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
-    case 256: return tc::launch<256>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
-    case 512: return tc::launch<512>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
-    case 768: return tc::launch<768>(x, w1, b1, w2, b2, g, bt, out, N, F, eps, st);
-    default:
-      return dispatch<__nv_bfloat16>(x, w1, b1, w2, b2, g, bt, out, N, D, F, eps, st);
+cudaError_t dispatch_bf16(const Args& a) {
+  switch (a.D) {
+    case 128: return tc::launch<128>(a);
+    case 256: return tc::launch<256>(a);
+    case 512: return tc::launch<512>(a);
+    case 768: return tc::launch<768>(a);
+    default: return dispatch<__nv_bfloat16>(a);
   }
 }
 
@@ -426,17 +473,25 @@ cudaError_t dispatch_bf16(const void* x, const void* w1, const float* b1, const 
 
 // x, out: [N, D]; w1: [F, D]; w2: [D, F] (dtype 0 = fp32, 1 = bf16);
 // b1 [F], b2, gamma, beta [D]: fp32. D in {64, 128, 256, 512, 768},
-// F a multiple of 128.
+// F a multiple of 128. With h1 non-null this is the saved-residual kernel and
+// also writes h1 [N, F] and yhat [N, D] in the storage dtype and rsig [N]
+// fp32. Dropout of the second product's output when dropout != 0: element
+// (row, col) is kept where splitmix32(row * D + col, seed) >= threshold, and
+// kept values are divided by keep_div = 1 - rate, after + b2 and before the
+// residual.
 extern "C" int vg_fused_ffn(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, const void* gamma, const void* beta, void* out,
-                            int N, int D, int F, float eps, int dtype, void* stream) {
+                            void* h1, void* yhat, void* rsig, int N, int D, int F, float eps,
+                            int dtype, int dropout, int seed, unsigned threshold,
+                            float keep_div, void* stream) {
   if (F % kFC != 0 || N < 1) return cudaErrorInvalidValue;
-  const float* b1f = static_cast<const float*>(b1);
-  const float* b2f = static_cast<const float*>(b2);
-  const float* g = static_cast<const float*>(gamma);
-  const float* bt = static_cast<const float*>(beta);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, w1, b1f, w2, b2f, g, bt, out, N, D, F, eps, st);
-  if (dtype == 1) return dispatch_bf16(x, w1, b1f, w2, b2f, g, bt, out, N, D, F, eps, st);
+  if (h1 != nullptr && (yhat == nullptr || rsig == nullptr)) return cudaErrorInvalidValue;
+  const Args a{x, w1, static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
+               static_cast<const float*>(gamma), static_cast<const float*>(beta), out, h1, yhat,
+               static_cast<float*>(rsig), N, D, F, eps,
+               vg::Dropout{dropout, (uint32_t)seed, threshold, keep_div},
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch<float>(a);
+  if (dtype == 1) return dispatch_bf16(a);
   return cudaErrorInvalidValue;
 }

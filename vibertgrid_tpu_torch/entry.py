@@ -5,15 +5,22 @@
 - :func:`entry` returns the flagship inference forward (BERT-base-uncased,
   ResNet-34-FPN, simplified head, bf16) and its arguments, randomly
   initialised from a seeded generator.
+- :func:`train_entry` returns the flagship train step (the same model with
+  the losses' OHEM and sampling counts, SGD + AdamW with bf16 state), its
+  state and a batch at the shapes the JAX package times training at.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.models.vibertgrid import Batch, ModelConfig, ViBERTgridNet
+from vibertgrid_tpu_torch.train.optim import make_optimizer
+from vibertgrid_tpu_torch.train.state import create_train_state, make_train_step
 
 FLAGSHIP = ModelConfig(
     num_classes=5,
@@ -22,6 +29,30 @@ FLAGSHIP = ModelConfig(
     classifier_mode="simp",
     compute_dtype=torch.bfloat16,
 )
+
+# The configuration the JAX package times its train step at (bench.py).
+FLAGSHIP_TRAIN = dataclasses.replace(
+    FLAGSHIP,
+    num_hard_positive_main_1=32,
+    num_hard_negative_main_1=32,
+    num_hard_positive_main_2=32,
+    num_hard_negative_main_2=32,
+    loss_aux_sample_list=[64, 128, 64],
+    num_hard_positive_aux=512,
+    num_hard_negative_aux=512,
+)
+FLAGSHIP_TRAIN_HYP = {
+    "optimizer_cnn_hyp": dict(
+        learning_rate=0.005, min_learning_rate=1e-6, warm_up_epoches=0,
+        warm_up_init_lr=1e-6, momentum=0.9, weight_decay=5e-4, min_weight_decay=5e-4,
+    ),
+    "optimizer_bert_hyp": dict(
+        learning_rate=5e-5, min_learning_rate=1e-8, warm_up_epoches=0,
+        warm_up_init_lr=1e-8, beta1=0.9, beta2=0.999, epsilon=1e-8,
+        weight_decay=0.01, min_weight_decay=0.01,
+    ),
+}
+TRAIN_SHAPE = dict(b=16, h=512, w=384, t=510, s=128, vocab=30522)
 
 
 def make_batch(b: int, h: int, w: int, t: int, s: int, vocab: int, seed: int = 0,
@@ -63,7 +94,26 @@ def entry(device="cuda", seed: int = 0):
     model = ViBERTgridNet(FLAGSHIP, device=dev, generator=generator).eval()
     batch = make_batch(b=1, h=256, w=256, t=510, s=32, vocab=30522, device=dev)
 
+    @torch.no_grad()
     def forward(model: ViBERTgridNet, batch: Batch) -> torch.Tensor:
         return model(batch).pred_label
 
     return forward, (model, batch)
+
+
+def train_entry(device="cuda", seed: int = 0, config: ModelConfig = FLAGSHIP_TRAIN,
+                hyp: dict = FLAGSHIP_TRAIN_HYP, shape: dict = TRAIN_SHAPE):
+    """``(state, train_step, batch)``: the flagship train step. ``state``
+    holds the model (randomly initialised from ``seed``) and the dual
+    optimizer (2 epochs of 100 iterations of schedule, bf16 state);
+    ``train_step(state, batch, seeds)`` updates it in place and returns
+    ``(state, loss)``; ``batch`` is 16 pages of 512x384 with one 510-token
+    window and 128 segments. ``config``, ``hyp`` and ``shape`` let a test
+    take the same path at a small size."""
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    model = ViBERTgridNet(config, device=dev, generator=generator)
+    optimizer = make_optimizer(hyp, num_epochs=2, niter_per_ep=100,
+                               named_parameters=model.named_parameters())
+    batch = make_batch(**shape, device=dev)
+    return create_train_state(model, optimizer), make_train_step(), batch

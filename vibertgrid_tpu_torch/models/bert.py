@@ -1,11 +1,21 @@
-"""BERT / RoBERTa text encoder (port of ``vibertgrid_tpu/models/bert.py``,
-inference).
+"""BERT / RoBERTa text encoder (port of ``vibertgrid_tpu/models/bert.py``).
 
 On CUDA tensors every layer's attention runs the hand-written attention
-kernel and its FFN tail the fused FFN kernel; on CPU tensors both run their
-plain twins. The Q/K/V projections and the attention out-projection are
-plain ``F.linear`` products, as the JAX package left them to XLA; the
-attention epilogue is out-projection → residual → LayerNorm.
+kernels (forward and backward) and its FFN tail the fused FFN kernel; on CPU
+tensors both run their plain twins. The Q/K/V projections and the attention
+out-projection are plain ``F.linear`` products, as the JAX package left them
+to XLA; the attention epilogue is out-projection → dropout → residual →
+LayerNorm.
+
+``deterministic=True`` (evaluation) drops nothing. ``deterministic=False``
+(training) drops the embeddings, the attention probabilities (inside the
+kernel), the attention output and the FFN output (inside the kernel), each
+from its own seed drawn from ``seeds`` in that order. The FFN tail is chosen
+by the gradient path, not by that flag, as the JAX package's
+``ffn_impl="auto"`` chooses it: where autograd records and an input or a
+parameter requires a gradient it is ``fused_ffn_saved``, whose backward needs
+no rematerialisation; elsewhere (under ``torch.no_grad()``) it is the
+residual-free ``fused_ffn``.
 """
 
 from __future__ import annotations
@@ -19,8 +29,9 @@ from torch import nn
 from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.models.layers import dense, embedding, linear
 from vibertgrid_tpu_torch.models.norm import LayerNorm
+from vibertgrid_tpu_torch.ops.dropout import hash_dropout
 from vibertgrid_tpu_torch.ops.flash_attention import flash_attention
-from vibertgrid_tpu_torch.ops.fused_ffn import fused_ffn
+from vibertgrid_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_saved
 
 # name → (hidden size, flavor); the reference's 7-entry bert_model_list
 # plus two tiny test configs.
@@ -83,6 +94,16 @@ class TextEncoderConfig:
         return TextEncoderConfig(vocab_size=vocab_size or 30522)
 
 
+def _draw(seeds, rate: float) -> int:
+    """The next seed of the stream for a site that drops; a site at rate 0
+    draws nothing."""
+    if rate <= 0.0:
+        return 0
+    if seeds is None:
+        raise ValueError("a training forward with dropout needs a seed stream")
+    return seeds.next()
+
+
 class SelfAttention(nn.Module):
     def __init__(self, config: TextEncoderConfig, dtype, *, device, generator):
         super().__init__()
@@ -92,14 +113,18 @@ class SelfAttention(nn.Module):
         for name in ("query", "key", "value", "out"):
             setattr(self, name, linear(d, d, device=device, generator=generator))
 
-    def forward(self, hidden, attn_bias):
+    def forward(self, hidden, attn_bias, deterministic: bool = True, seeds=None):
         cfg = self.config
         dt = self.dtype
         q = dense(hidden, self.query, dt)
         k = dense(hidden, self.key, dt)
         v = dense(hidden, self.value, dt)
         dh = cfg.hidden_size // cfg.num_heads
-        ctx = flash_attention(q, k, v, attn_bias, 1.0 / float(dh) ** 0.5, cfg.num_heads)
+        rate = 0.0 if deterministic else cfg.attention_dropout
+        ctx = flash_attention(
+            q, k, v, attn_bias, 1.0 / float(dh) ** 0.5, cfg.num_heads,
+            rate=rate, seed=_draw(seeds, rate),
+        )
         return dense(ctx, self.out, dt)
 
 
@@ -117,23 +142,40 @@ class EncoderLayer(nn.Module):
         self.output = linear(f, d, **kw)
         self.output_ln = LayerNorm(d, eps=eps, dtype=dtype, device=device)
 
-    def forward(self, hidden, attn_bias):
+    def forward(self, hidden, attn_bias, deterministic: bool = True, seeds=None):
         b, t, d = hidden.shape
         dt = self.dtype
-        hidden = self.attention_ln(hidden + self.attention(hidden, attn_bias))
-        out = fused_ffn(
-            hidden.reshape(b * t, d),
-            self.intermediate.weight.to(dt), self.intermediate.bias,
-            self.output.weight.to(dt), self.output.bias,
-            self.output_ln.weight, self.output_ln.bias,
-            self.config.layer_norm_eps,
-        )
+        rate = 0.0 if deterministic else self.config.hidden_dropout
+        attn = self.attention(hidden, attn_bias, deterministic, seeds)
+        attn = hash_dropout(attn, _draw(seeds, rate), rate)
+        hidden = self.attention_ln(hidden + attn)
+        x2d = hidden.reshape(b * t, d)
+        ln = (self.output_ln.weight, self.output_ln.bias, self.config.layer_norm_eps)
+        params = (self.intermediate.weight, self.intermediate.bias,
+                  self.output.weight, self.output.bias, *ln[:2])
+        # The residual-free kernel has no backward, so it serves only where no
+        # gradient can be asked: an evaluation forward under autograd takes
+        # the saved-residual kernel at rate 0, as every training forward does.
+        grad_path = torch.is_grad_enabled() and any(t.requires_grad for t in (x2d, *params))
+        if deterministic and not grad_path:
+            out = fused_ffn(
+                x2d, self.intermediate.weight.to(dt), self.intermediate.bias,
+                self.output.weight.to(dt), self.output.bias, *ln,
+            )
+        else:  # takes the fp32 parameters: their gradients leave it in fp32
+            out = fused_ffn_saved(
+                x2d, self.intermediate.weight, self.intermediate.bias,
+                self.output.weight, self.output.bias, *ln,
+                rate=rate, seed=_draw(seeds, rate),
+            )
         return out.reshape(b, t, d)
 
 
 class TextEncoder(nn.Module):
     """BERT/RoBERTa encoder returning the last hidden state:
-    ``forward(input_ids [B, T], attention_mask [B, T])`` → ``[B, T, D]``."""
+    ``forward(input_ids [B, T], attention_mask [B, T], deterministic, seeds)``
+    → ``[B, T, D]``. ``seeds`` (an object with ``next() -> int``, see
+    ``train/seeds.py``) is read only when ``deterministic`` is false."""
 
     def __init__(self, config: TextEncoderConfig, dtype=torch.float32, *,
                  device="cuda", generator: torch.Generator | None = None):
@@ -155,7 +197,7 @@ class TextEncoder(nn.Module):
             EncoderLayer(config, dtype, **kw) for _ in range(config.num_layers)
         )
 
-    def forward(self, input_ids, attention_mask):
+    def forward(self, input_ids, attention_mask, deterministic: bool = True, seeds=None):
         cfg = self.config
         b, t = input_ids.shape
         ids = input_ids.long()
@@ -172,7 +214,9 @@ class TextEncoder(nn.Module):
             + self.token_type_embeddings(torch.zeros_like(ids))
         )
         hidden = self.embeddings_ln(hidden)
+        rate = 0.0 if deterministic else cfg.hidden_dropout
+        hidden = hash_dropout(hidden, _draw(seeds, rate), rate)
         attn_bias = torch.where(attention_mask.bool(), 0.0, -1e9).float()  # [B, T]
         for layer in self.layer:
-            hidden = layer(hidden, attn_bias)
+            hidden = layer(hidden, attn_bias, deterministic, seeds)
         return hidden

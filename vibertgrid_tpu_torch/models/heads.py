@@ -1,8 +1,8 @@
-"""Late fusion and the simplified field-type head (port of
-``vibertgrid_tpu/models/heads.py``, inference only).
+"""Late fusion and the simplified field-type head with its losses (port of
+``vibertgrid_tpu/models/heads.py``).
 
-Heads work on flattened ``[N = B·S]`` segment rows. The full two-stage
-head and the CRF head are not ported yet.
+Heads work on flattened ``[N = B·S]`` segment rows with a validity mask.
+The full two-stage head and the CRF head are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from torch import nn
 
 from vibertgrid_tpu_torch.models.layers import conv, conv2d, dense, linear
 from vibertgrid_tpu_torch.models.norm import MaskedBatchNorm
+from vibertgrid_tpu_torch.ops.losses import cross_entropy_ohem
 
 
 class MLPClassifier(nn.Module):
@@ -50,10 +51,10 @@ class ROIEmbedding(nn.Module):
         self.bn2 = MaskedBatchNorm(channels, dtype=dtype, device=device)
         self.linear = linear(roi_shape * roi_shape * channels, 1024, **kw)
 
-    def forward(self, rois):
+    def forward(self, rois, valid, train: bool = False):
         x = rois.permute(0, 3, 1, 2).to(self.dtype)
-        x = F.relu(self.bn1(conv(x, self.conv1, self.dtype)))
-        x = F.relu(self.bn2(conv(x, self.conv2, self.dtype)))
+        x = F.relu(self.bn1(conv(x, self.conv1, self.dtype), valid, train))
+        x = F.relu(self.bn2(conv(x, self.conv2, self.dtype), valid, train))
         # the linear weight was laid out for an NHWC flatten
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return dense(x, self.linear, self.dtype)
@@ -70,27 +71,50 @@ class LateFusion(nn.Module):
         self.roi_embedding = ROIEmbedding(channels, roi_shape, dtype=dtype, **kw)
         self.fuse = linear(1024 + text_dim, 1024, **kw)
 
-    def forward(self, rois, bert_embeddings):
-        roi_emb = self.roi_embedding(rois)
+    def forward(self, rois, bert_embeddings, valid, train: bool = False):
+        roi_emb = self.roi_embedding(rois, valid, train)
         fuse = torch.cat([roi_emb, bert_embeddings.to(roi_emb.dtype)], dim=-1)
         return dense(fuse, self.fuse, self.dtype)
 
 
 class SimplifiedFieldTypeClassification(nn.Module):
-    """Multi-class classifier plus the auxiliary pos/neg classifier; at
-    inference only the class softmax is returned.
+    """Multi-class classifier plus the auxiliary pos/neg classifier.
+
+    ``forward(fuse, segment_classes, valid, compute_loss, seeds)`` →
+    ``(loss, class_pred)``: the class softmax, and with ``compute_loss`` two
+    OHEM cross entropies (pos/neg on ``class > 0``, then the classes), summed
+    when ``add_pos_neg``. ``seeds``: two ints for the random pre-sampling,
+    read only when ``ohem_random``.
 
     Both MLPs are always two-layer ("multi"), whatever ``layer_mode`` says:
     the reference compares against the typo "sigle", so its shipped
     "single" configs build the two-layer head, and the published numbers
     come from that architecture."""
 
-    def __init__(self, in_f: int, num_classes: int, *, dtype, device, generator):
+    def __init__(self, in_f: int, num_classes: int, *, num_hard_positive_1: int = -1,
+                 num_hard_negative_1: int = -1, num_hard_positive_2: int = -1,
+                 num_hard_negative_2: int = -1, ohem_random: bool = False,
+                 add_pos_neg: bool = True, loss_weights=None, dtype, device, generator):
         super().__init__()
+        self.ohem_1 = dict(num_hard_positive=num_hard_positive_1,
+                           num_hard_negative=num_hard_negative_1, random=ohem_random)
+        self.ohem_2 = dict(num_hard_positive=num_hard_positive_2,
+                           num_hard_negative=num_hard_negative_2, random=ohem_random,
+                           weight=loss_weights)
+        self.add_pos_neg = add_pos_neg
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.pos_neg_net = MLPClassifier(in_f, 2, "multi", **kw)
         self.category_net = MLPClassifier(in_f, num_classes, "multi", **kw)
 
-    def forward(self, fuse_embeddings):
-        logits = self.category_net(fuse_embeddings)
-        return torch.softmax(logits.float(), dim=-1)
+    def forward(self, fuse_embeddings, segment_classes=None, valid=None, *,
+                compute_loss: bool = False, seeds=(0, 0)):
+        class_logits = self.category_net(fuse_embeddings)
+        class_pred = torch.softmax(class_logits.float(), dim=-1)
+        if not compute_loss:
+            return None, class_pred
+        pos_neg_logits = self.pos_neg_net(fuse_embeddings)
+        loss1 = cross_entropy_ohem(
+            pos_neg_logits, (segment_classes > 0).long(), valid, seed=seeds[0], **self.ohem_1)
+        loss2 = cross_entropy_ohem(
+            class_logits, segment_classes, valid, seed=seeds[1], **self.ohem_2)
+        return (loss1 + loss2 if self.add_pos_neg else loss2), class_pred

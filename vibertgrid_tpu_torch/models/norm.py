@@ -1,8 +1,13 @@
 """Normalization layers with fp32 statistics and compute-dtype outputs
-(port of ``vibertgrid_tpu/models/norm.py``, inference only).
+(port of ``vibertgrid_tpu/models/norm.py``).
 
 Parameters (``weight``, ``bias``) and running statistics are fp32; the
-input is upcast, normalised in fp32 and cast back to ``dtype``.
+input is upcast, normalised in fp32 and cast back to ``dtype``. In training
+the BatchNorms normalise with the batch's own statistics and move the running
+ones: ``ra = momentum·ra + (1 − momentum)·batch`` with the **biased** batch
+variance, as the JAX package does (``torch.nn.BatchNorm2d`` would store the
+unbiased one). Whether a call trains is an argument, not the module's
+``training`` flag, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,42 +36,83 @@ class LayerNorm(nn.Module):
 
 
 class _RunningNorm(nn.Module):
-    def __init__(self, channels: int, *, eps: float, dtype, device):
+    def __init__(self, channels: int, *, eps: float, momentum: float, dtype, device):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum  # weight of the old running value, flax convention
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+
+
+def _view(p: torch.Tensor) -> torch.Tensor:
+    return p.view(1, -1, 1, 1)
+
 
 class BatchNorm(_RunningNorm):
-    """Eval-mode BatchNorm on NCHW (any memory format) from running
-    statistics: ``(x − mean)·rsqrt(var + eps)·weight + bias``, in fp32.
+    """BatchNorm on NCHW (any memory format), fp32 arithmetic:
+    ``(x − mean)·rsqrt(var + eps)·weight + bias``.
 
-    ``F.batch_norm`` in eval mode computes exactly that in fp32 for a bf16
-    input with fp32 statistics, in one pass over the tensor, where the
-    explicit upcast-normalise-cast takes six."""
+    ``train=False`` normalises with the running statistics: ``F.batch_norm``
+    in eval mode computes exactly that in fp32 for a bf16 input with fp32
+    statistics, in one pass over the tensor. ``train=True`` normalises with
+    the batch statistics (biased variance) and moves the running ones
+    toward them."""
 
-    def __init__(self, channels: int, *, eps: float = 1e-5, dtype=torch.float32, device=None):
-        super().__init__(channels, eps=eps, dtype=dtype, device=device)
+    def __init__(self, channels: int, *, eps: float = 1e-5, momentum: float = 0.9,
+                 dtype=torch.float32, device=None):
+        super().__init__(channels, eps=eps, momentum=momentum, dtype=dtype, device=device)
 
-    def forward(self, x):
-        return F.batch_norm(
-            x.to(self.dtype), self.running_mean, self.running_var, self.weight, self.bias,
-            training=False, eps=self.eps,
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.batch_norm(
+                x.to(self.dtype), self.running_mean, self.running_var, self.weight, self.bias,
+                training=False, eps=self.eps,
+            )
+        # One fused pass forward and one backward: F.batch_norm normalises
+        # with the biased batch variance in fp32 and, at momentum 1, leaves
+        # the batch mean and the *unbiased* variance in the buffers it is
+        # given; (n − 1)/n turns that into the biased one the running
+        # average takes.
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(
+            x.to(self.dtype), mean, var, self.weight, self.bias,
+            training=True, momentum=1.0, eps=self.eps,
         )
+        self._update(mean, var * ((n - 1) / n))
+        return y
 
 
 class MaskedBatchNorm(_RunningNorm):
-    """Eval mode of the masked RoI BatchNorm: running statistics, so the
-    validity mask plays no part; divides by ``sqrt(var + eps)``."""
+    """BatchNorm over RoIs ``[N, C, h, w]`` with an entry validity mask
+    ``[N]``: in training the statistics are taken over the valid entries only
+    (``denom = max(Σmask · h·w, 1)``), so padding RoIs do not contaminate
+    them; in eval the running statistics are used and the mask plays no
+    part. Divides by ``sqrt(var + eps)``."""
 
-    def __init__(self, channels: int, *, eps: float = 1e-5, dtype=torch.float32, device=None):
-        super().__init__(channels, eps=eps, dtype=dtype, device=device)
+    def __init__(self, channels: int, *, eps: float = 1e-5, momentum: float = 0.9,
+                 dtype=torch.float32, device=None):
+        super().__init__(channels, eps=eps, momentum=momentum, dtype=dtype, device=device)
 
-    def forward(self, x):
-        view = lambda p: p.view(1, -1, 1, 1)
-        y = (x.float() - view(self.running_mean)) / view(torch.sqrt(self.running_var + self.eps))
-        return (y * view(self.weight) + view(self.bias)).to(self.dtype)
+    def forward(self, x, mask, train: bool = False):
+        xf = x.float()
+        if train:
+            m = mask.float().view(-1, 1, 1, 1)
+            denom = torch.clamp(m.sum() * (x.shape[2] * x.shape[3]), min=1.0)
+            mean = (xf * m).sum(dim=(0, 2, 3)) / denom
+            diff = (xf - _view(mean)) * m
+            var = (diff * diff).sum(dim=(0, 2, 3)) / denom
+            self._update(mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - _view(mean)) / _view(torch.sqrt(var + self.eps))
+        return (y * _view(self.weight) + _view(self.bias)).to(self.dtype)

@@ -1,5 +1,5 @@
 """ResNet-FPN backbone with BERTgrid early fusion (port of
-``vibertgrid_tpu/models/resnet_fpn.py``, inference).
+``vibertgrid_tpu/models/resnet_fpn.py``).
 
 The public interface keeps the JAX layouts: images ``[B, H, W, 3]`` and the
 BERTgrid ``[B, H/8, W/8, Dg]`` in, P_fuse ``[B, H/4, W/4, 256]`` out, all
@@ -55,13 +55,13 @@ class ResBlock(nn.Module):
             self.shortcut_conv = conv2d(in_c, out_c, 1, stride=1 if d_variant else 2, **kw)
             self.shortcut_bn = BatchNorm(out_c, dtype=dtype, device=device)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt = self.dtype
-        h = F.relu(self.bn1(conv(x, self.conv1, dt)))
-        h = self.bn2(conv(h, self.conv2, dt))
+        h = F.relu(self.bn1(conv(x, self.conv1, dt), train))
+        h = self.bn2(conv(h, self.conv2, dt), train)
         if self.downsample:
             sc = F.avg_pool2d(x, 2, 2) if self.d_variant else x
-            sc = self.shortcut_bn(conv(sc, self.shortcut_conv, dt))
+            sc = self.shortcut_bn(conv(sc, self.shortcut_conv, dt), train)
         else:
             sc = x
         return F.relu(h + sc)
@@ -69,8 +69,9 @@ class ResBlock(nn.Module):
 
 class ResNetFPN(nn.Module):
     """stem → 4 stages (early fusion after stage 3's first block) → FPN →
-    P_fuse. ``forward(images [B,H,W,3], grid [B,H/8,W/8,Dg])`` →
-    ``[B, H/4, W/4, fuse_channels]``."""
+    P_fuse. ``forward(images [B,H,W,3], grid [B,H/8,W/8,Dg], train)`` →
+    ``[B, H/4, W/4, fuse_channels]``; ``train`` selects batch statistics in
+    the BatchNorms."""
 
     def __init__(self, size_list: Sequence[int], *, grid_channels: int = 768,
                  d_variant: bool = False, pyramid_channels: int = 256,
@@ -106,24 +107,24 @@ class ResNetFPN(nn.Module):
         # level by level (see forward).
         self.fuse = conv2d(4 * pc, fuse_channels, 1, **kw)
 
-    def _stage(self, x, name: str, n: int, first: int = 0):
+    def _stage(self, x, name: str, n: int, train: bool, first: int = 0):
         for i in range(first, n):
-            x = getattr(self, f"{name}_block{i}")(x)
+            x = getattr(self, f"{name}_block{i}")(x, train)
         return x
 
-    def forward(self, images, grid):
+    def forward(self, images, grid, train: bool = False):
         dt = self.dtype
         n2, n3, n4, n5 = self.size_list
         x = images.permute(0, 3, 1, 2).to(dt)  # channels_last NCHW view
-        x = F.relu(self.stem_bn(conv(x, self.stem_conv, dt)))
+        x = F.relu(self.stem_bn(conv(x, self.stem_conv, dt), train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        x1 = self._stage(x, "stage2", n2)  # stride 4
-        x2 = self.stage3_block0(x1)
+        x1 = self._stage(x, "stage2", n2, train)  # stride 4
+        x2 = self.stage3_block0(x1, train)
         x2 = torch.cat([x2, grid.permute(0, 3, 1, 2).to(x2.dtype)], dim=1)
         x2 = conv(x2, self.early_fusion, dt)
-        x2 = self._stage(x2, "stage3", n3, first=1)  # stride 8
-        x3 = self._stage(x2, "stage4", n4)  # stride 16
-        x4 = conv(self._stage(x3, "stage5", n5), self.conv6, dt)  # stride 32
+        x2 = self._stage(x2, "stage3", n3, train, first=1)  # stride 8
+        x3 = self._stage(x2, "stage4", n4, train)  # stride 16
+        x4 = conv(self._stage(x3, "stage5", n5, train), self.conv6, dt)  # stride 32
         x5 = conv(_up(x4, 2) + conv(x3, self.skip1, dt), self.merge1, dt)
         x6 = conv(_up(x5, 2) + conv(x2, self.skip2, dt), self.merge2, dt)
         x7 = conv(_up(x6, 2) + conv(x1, self.skip3, dt), self.merge3, dt)

@@ -1,13 +1,15 @@
-"""The ViBERTgrid network, inference forward (port of
-``vibertgrid_tpu/models/vibertgrid.py``):
+"""The ViBERTgrid network (port of ``vibertgrid_tpu/models/vibertgrid.py``):
 
 tokens ─ windowed BERT ─ segment aggregation ─┐
                                               ├─ BERTgrid scatter ─ early-fused
 images ───────────────────────────────────────┘   ResNet-FPN ─ P_fuse
 P_fuse ─ RoIAlign ─ late fusion with segment BERT embeddings ─ field-type head
 
-Training, the losses, the auxiliary segmentation head and the full and CRF
-field-type heads are not ported yet (ROADMAP Queue 1 items 10-12).
+With ``compute_loss`` the auxiliary segmentation head reads P_fuse too and
+``total_loss = loss_c + λ·loss_aux``; with ``train`` the encoder drops out
+and the BatchNorms use and update batch statistics. The full and CRF
+field-type heads (and the two-stage segmentation head that goes with the
+full one) are not ported yet (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from vibertgrid_tpu_torch.models.bert import (
 )
 from vibertgrid_tpu_torch.models.heads import LateFusion, SimplifiedFieldTypeClassification
 from vibertgrid_tpu_torch.models.resnet_fpn import BACKBONE_REGISTRY, ResNetFPN
+from vibertgrid_tpu_torch.models.seg_head import SimplifiedSemanticSegmentationHead
 from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter
 from vibertgrid_tpu_torch.ops.roi_align import roi_align
 from vibertgrid_tpu_torch.ops.segments import aggregate_token_embeddings
@@ -169,9 +172,18 @@ class ModelConfig:
 
 
 class ViBERTgridNet(nn.Module):
-    """See the module docstring. ``forward(batch)`` → :class:`ModelOutput`
-    with ``pred_label [B, S, C]``. Parameters are fp32; products run in
-    ``config.compute_dtype``."""
+    """See the module docstring. ``forward(batch, train, compute_loss,
+    seeds)`` → :class:`ModelOutput` with ``pred_label [B, S, C]`` and, with
+    ``compute_loss``, the losses and the segmentation logits. Parameters are
+    fp32; products run in ``config.compute_dtype``.
+
+    ``seeds`` (an object with ``next() -> int``, see ``train/seeds.py``)
+    feeds the dropout sites and the sampled losses in the order that module
+    documents; without it the dropout sites raise and the losses use seed 0.
+    An evaluation forward works with autograd recording or under
+    ``torch.no_grad()``, with the same values; only the latter takes the
+    residual-free FFN kernel and keeps no activations, so inference callers
+    (``entry()``'s ``forward`` does) run it under ``torch.no_grad()``."""
 
     def __init__(self, config: ModelConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
@@ -196,17 +208,25 @@ class ViBERTgridNet(nn.Module):
         self.late_fusion = LateFusion(
             256, config.roi_shape, text_cfg.hidden_size, dtype=dt, **kw
         )
+        self.semantic_segmentation_head = SimplifiedSemanticSegmentationHead(
+            256, config.num_tokens,
+            loss_1_sample_list=config.loss_aux_sample_list,
+            num_hard_positive=config.num_hard_positive_aux,
+            num_hard_negative=config.num_hard_negative_aux,
+            loss_weights=config.loss_weights, dtype=dt, **kw,
+        )
         self.field_type_head = SimplifiedFieldTypeClassification(
-            1024, config.num_tokens, dtype=dt, **kw
+            1024, config.num_tokens,
+            num_hard_positive_1=config.num_hard_positive_main_1,
+            num_hard_negative_1=config.num_hard_negative_main_1,
+            num_hard_positive_2=config.num_hard_positive_main_2,
+            num_hard_negative_2=config.num_hard_negative_main_2,
+            ohem_random=config.ohem_random, add_pos_neg=config.add_pos_neg,
+            loss_weights=config.loss_weights, dtype=dt, **kw,
         )
 
-    @torch.no_grad()
-    def forward(self, batch: Batch, *, train: bool = False,
-                compute_loss: bool = False) -> ModelOutput:
-        if train or compute_loss:
-            raise NotImplementedError(
-                "training and the losses are not ported yet (ROADMAP Queue 1 items 10-12)"
-            )
+    def forward(self, batch: Batch, *, train: bool = False, compute_loss: bool = False,
+                seeds=None) -> ModelOutput:
         cfg = self.config
         dt = cfg.compute_dtype
         b, h, w, _ = batch.images.shape
@@ -222,7 +242,9 @@ class ViBERTgridNet(nn.Module):
             batch.tokens, batch.token_mask, cls_id=cfg.cls_token_id,
             sep_id=cfg.sep_token_id, seq_len=seq_len,
         )
-        tok_emb = unframe_windows(self.bert_model(ids, amask), batch_size=b)  # [B, T, D]
+        tok_emb = unframe_windows(
+            self.bert_model(ids, amask, deterministic=not train, seeds=seeds), batch_size=b
+        )  # [B, T, D]
         seg_emb = aggregate_token_embeddings(
             tok_emb.float(), batch.seg_ids, batch.token_mask,
             num_segments=s, mode=cfg.grid_mode,
@@ -231,15 +253,33 @@ class ViBERTgridNet(nn.Module):
             seg_emb.to(dt), batch.boxes, batch.box_mask,
             height=h // gs, width=w // gs, stride=gs,
         )  # [B, H/gs, W/gs, D]
-        p_fuse = self.backbone(batch.images, grid)  # [B, H/4, W/4, 256]
+        p_fuse = self.backbone(batch.images, grid, train)  # [B, H/4, W/4, 256]
+
+        loss_aux = pred_mask = pred_ss = None
+        draw2 = lambda: (0, 0) if seeds is None else (seeds.next(), seeds.next())
+        if compute_loss:
+            loss_aux, pred_mask, pred_ss = self.semantic_segmentation_head(
+                p_fuse, batch.seg_classes, batch.boxes, batch.box_mask,
+                train=train, seeds=draw2(),
+            )
         rois = roi_align(
             p_fuse, batch.boxes.float(), batch.box_mask,
             output_size=cfg.roi_shape, spatial_scale=1.0 / cfg.p_fuse_downsampling_ratio,
         )  # [B, S, 7, 7, 256]
         rois_flat = rois.reshape(b * s, cfg.roi_shape, cfg.roi_shape, -1)
-        fuse = self.late_fusion(rois_flat, seg_emb.reshape(b * s, -1))  # [B·S, 1024]
-        pred = self.field_type_head(fuse)
+        valid_flat = batch.box_mask.reshape(b * s)
+        fuse = self.late_fusion(
+            rois_flat, seg_emb.reshape(b * s, -1), valid_flat, train
+        )  # [B·S, 1024]
+        loss_c, pred = self.field_type_head(
+            fuse, batch.seg_classes.reshape(b * s), valid_flat,
+            compute_loss=compute_loss, seeds=draw2() if compute_loss else (0, 0),
+        )
+        total_loss = None
+        if compute_loss:
+            total_loss = loss_c + cfg.loss_control_lambda * loss_aux
         return ModelOutput(
-            total_loss=None, pred_mask=None, pred_ss=None,
+            total_loss=total_loss, pred_mask=pred_mask, pred_ss=pred_ss,
             gt_label=batch.seg_classes, pred_label=pred.reshape(b, s, -1),
+            loss_c=loss_c, loss_aux=loss_aux,
         )

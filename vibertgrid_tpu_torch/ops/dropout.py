@@ -1,0 +1,105 @@
+"""Counter-based dropout (port of ``vibertgrid_tpu/ops/dropout.py``).
+
+The keep decision for an element is a splitmix32 hash of (seed, flat element
+index), so a mask is a pure function of an int32 seed: the backward pass
+regenerates it instead of storing it, the attention and FFN kernels draw the
+same bits in ``csrc/common.cuh::splitmix32``, and the masks are bit-identical
+to the JAX package's for a given seed.
+
+PyTorch has no unsigned 32-bit arithmetic, so the hash runs in wrapping
+int32: multiplies wrap as uint32 multiplies do, the logical right shifts are
+arithmetic shifts with the sign extension masked off, and unsigned
+comparisons flip the sign bit of both sides.
+
+Every random site takes an explicit int seed (see
+:class:`vibertgrid_tpu_torch.train.seeds.SeedStream`); the JAX package's
+``derive_seed`` draws from a threefry key and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_INT_MIN = -(2**31)
+
+
+def _i32(value: int) -> int:
+    """The Python int whose int32 bit pattern is ``value mod 2³²``."""
+    value &= _M32
+    return value - 2**32 if value >= 2**31 else value
+
+
+def _lsr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int32 bit patterns."""
+    return (x >> n) & ((1 << (32 - n)) - 1)
+
+
+def splitmix32_i32(x: torch.Tensor, seed) -> torch.Tensor:
+    """Splitmix32 finalizer of (seed, counter) on int32 bit patterns.
+
+    ``x``: int32 counters; ``seed``: a Python int (any int32/uint32 value)
+    or an int32 tensor that broadcasts against ``x``. Returns int32 bit
+    patterns of the uint32 hash.
+    """
+    if isinstance(seed, torch.Tensor):
+        mixed = seed.to(torch.int32) * _i32(0x9E3779B9)
+    else:
+        mixed = _i32((int(seed) & _M32) * 0x9E3779B9)
+    x = x ^ mixed
+    x = (x ^ _lsr(x, 16)) * _i32(0x7FEB352D)
+    x = (x ^ _lsr(x, 15)) * _i32(0x846CA68B)
+    return x ^ _lsr(x, 16)
+
+
+def splitmix32(x: torch.Tensor, seed) -> torch.Tensor:
+    """The hash as int64 values in ``[0, 2³²)``, ordered as uint32."""
+    return splitmix32_i32(x.to(torch.int32), seed).to(torch.int64) & _M32
+
+
+def dropout_threshold(rate: float) -> int:
+    """Elements whose hash is below ``int(rate·2³²)`` are dropped."""
+    return int(rate * float(2**32))
+
+
+def keep_from_bits(bits_i32: torch.Tensor, rate: float) -> torch.Tensor:
+    """Bool keep mask: ``uint32(bits) >= uint32(rate·2³²)``."""
+    return (bits_i32 ^ _INT_MIN) >= _i32(dropout_threshold(rate) ^ 0x80000000)
+
+
+def keep_mask(shape, seed, rate: float, device) -> torch.Tensor:
+    """Bool keep mask of ``shape``, hashed over the row-major flat index."""
+    n = math.prod(shape)
+    counters = torch.arange(n, dtype=torch.int32, device=device)
+    return keep_from_bits(splitmix32_i32(counters, seed), rate).reshape(tuple(shape))
+
+
+def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+    keep = keep_mask(x.shape, seed, rate, x.device)
+    return x * torch.where(keep, scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _HashDropout(torch.autograd.Function):
+    """Saves only the seed; the backward pass regenerates the mask."""
+
+    @staticmethod
+    def forward(ctx, x, seed, rate):
+        ctx.seed, ctx.rate = seed, rate
+        return _apply(x, seed, rate)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _apply(grad, ctx.seed, ctx.rate), None, None
+
+
+def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """Dropout with a counter-based mask: ``x · keep / (1 − rate)``.
+
+    ``seed``: int32 value, distinct for each call site; ``rate`` in [0, 1).
+    """
+    if rate <= 0.0:
+        return x
+    return _HashDropout.apply(x, int(seed), float(rate))

@@ -1,55 +1,108 @@
-"""Fused self-attention on packed heads (port of
-``vibertgrid_tpu/ops/flash_attention.py``, forward only).
+"""Fused self-attention on packed heads, forward and backward (port of
+``vibertgrid_tpu/ops/flash_attention.py``).
 
 q/k/v arrive as the projection outputs ``[B, T, H·D]`` and the context
-leaves in the same layout, so no head transposes exist. On a CUDA tensor
-:func:`flash_attention` launches the hand-written kernel in
-``csrc/flash_attention.cu``; on a CPU tensor it runs
-:func:`attention_reference`, the plain version the kernel is held against.
+leaves in the same layout, so no head transposes exist. :func:`flash_attention`
+is differentiable: on CUDA tensors its forward launches
+``csrc/flash_attention.cu`` and its backward ``csrc/flash_attention_bwd.cu``;
+on CPU tensors they run :func:`attention_reference` and
+:func:`attention_backward_reference`, the plain versions the kernels are held
+against.
+
+Attention-probability dropout runs inside the kernels from a stateless hash
+(:mod:`vibertgrid_tpu_torch.ops.dropout`): element ``(row, col)`` of head
+``(b, h)`` is kept where ``splitmix32(row·Tp + col, seed + b·H + h)`` reaches
+``uint32(rate·2³²)``, with ``Tp = round_up(T, 128)`` (the row stride of the
+JAX package's padded tile), so the masks match the JAX package's bit for bit
+and the backward regenerates them from the seed.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vibertgrid_tpu_torch.ops import kernels
+from vibertgrid_tpu_torch.ops.dropout import _i32, keep_from_bits, splitmix32_i32
 
 
-def attention_reference(q, k, v, bias, sm_scale: float, num_heads: int):
-    """Plain twin of the kernel: fp32 ``softmax(q·kᵀ·scale + bias)``, p
-    rounded to q's dtype before ``p·v`` as the TPU kernel does, fp32
-    accumulation, result in q's dtype.
+def _keep_scale(rate: float) -> float:
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def attention_dropout_mask(b: int, num_heads: int, t: int, seed: int, rate: float,
+                           device) -> torch.Tensor:
+    """``[B, H, T, T]`` fp32: ``1/(1−rate)`` where a probability is kept,
+    else 0."""
+    tp = (t + 127) // 128 * 128
+    rows = torch.arange(t, dtype=torch.int32, device=device)
+    index = rows[:, None] * tp + rows[None, :]
+    heads = torch.arange(b * num_heads, dtype=torch.int32, device=device)
+    seeds = (heads + _i32(seed)).reshape(b, num_heads, 1, 1)  # wrapping int32 add
+    keep = keep_from_bits(splitmix32_i32(index, seeds), rate)
+    return keep.float() * _keep_scale(rate)
+
+
+def _heads(x, num_heads):
+    b, t, m = x.shape
+    return x.float().reshape(b, t, num_heads, m // num_heads).transpose(1, 2)
+
+
+def _probabilities(q, k, bias, sm_scale, num_heads):
+    s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * sm_scale
+    s = s + bias.float()[:, None, None, :]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)  # [B, H, T, T] fp32
+
+
+def _packed(x, dtype):
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d).to(dtype)
+
+
+def attention_reference(q, k, v, bias, sm_scale: float, num_heads: int,
+                        seed: int = 0, rate: float = 0.0):
+    """Plain twin of the forward kernel: fp32 ``softmax(q·kᵀ·scale + bias)``,
+    dropout of the probabilities, p rounded to q's dtype before ``p·v`` as
+    the TPU kernel does, fp32 accumulation, result in q's dtype.
 
     q/k/v: ``[B, T, H·D]``; bias: ``[B, T]`` fp32 additive key bias.
     """
-    b, t, m = q.shape
-    d = m // num_heads
-    heads = lambda x: x.float().reshape(b, t, num_heads, d).transpose(1, 2)
-    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * sm_scale
-    s = s + bias.float()[:, None, None, :]
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
-    p = p.to(q.dtype).float()
-    out = torch.matmul(p, heads(v))  # [B, H, T, D]
-    return out.transpose(1, 2).reshape(b, t, m).to(q.dtype)
-
-
-def flash_attention(q, k, v, bias, sm_scale: float, num_heads: int, rate: float = 0.0):
-    """``softmax(q·kᵀ·scale + bias)·v`` per head on packed ``[B, T, H·D]``.
-
-    ``bias``: ``[B, T]`` fp32, 0 for real keys and −1e9 for masked ones.
-    CUDA tensors go through the kernel (T ≤ 512, D ≤ 128, fp32 or bf16);
-    CPU tensors through :func:`attention_reference`.
-    """
+    b, t, _ = q.shape
+    p = _probabilities(q, k, bias, sm_scale, num_heads)
     if rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout comes with the training slice (ROADMAP Queue 1 item 10)"
-        )
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, bias, sm_scale, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    kernels.check_inputs("flash_attention", q, k, v, bias)
+        p = p * attention_dropout_mask(b, num_heads, t, seed, rate, q.device)
+    p = p.to(q.dtype).float()
+    return _packed(torch.matmul(p, _heads(v, num_heads)), q.dtype)
+
+
+def attention_backward_reference(q, k, v, bias, d_out, sm_scale: float, num_heads: int,
+                                 seed: int = 0, rate: float = 0.0):
+    """Plain twin of the backward kernel, the same steps and roundings:
+    ``dp = keep ⊙ (do·vᵀ)``, ``delta = rowsum(dp ⊙ p)`` with the un-dropped
+    p, ``ds = p ⊙ (dp − delta)`` in fp32; ds and ``keep ⊙ p`` rounded to the
+    storage dtype before their products. Returns ``(dq, dk, dv, d_bias)``,
+    ``d_bias [B, T]`` fp32 summed over heads and queries."""
+    b, t, _ = q.shape
+    dt = q.dtype
+    p = _probabilities(q, k, bias, sm_scale, num_heads)
+    do = _heads(d_out, num_heads)
+    dp = torch.matmul(do, _heads(v, num_heads).transpose(-1, -2))
+    p_dropped = p
+    if rate > 0.0:
+        keep = attention_dropout_mask(b, num_heads, t, seed, rate, q.device)
+        dp = dp * keep
+        p_dropped = p * keep
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    ds_r = ds.to(dt).float()
+    dq = torch.matmul(ds_r, _heads(k, num_heads)) * sm_scale
+    dk = torch.matmul(ds_r.transpose(-1, -2), _heads(q, num_heads)) * sm_scale
+    dv = torch.matmul(p_dropped.to(dt).float().transpose(-1, -2), do)
+    return _packed(dq, dt), _packed(dk, dt), _packed(dv, dt), ds.sum(dim=(1, 2))
+
+
+def _check(q, k, v, bias, num_heads):
     b, t, m = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -59,13 +112,82 @@ def flash_attention(q, k, v, bias, sm_scale: float, num_heads: int, rate: float 
         raise ValueError(f"bias must be [B, T] float32, got {bias.shape} {bias.dtype}")
     if m % num_heads or m // num_heads > 128 or t > 512:
         raise ValueError(f"kernel takes T <= 512 and D <= 128, got T={t}, H·D={m}")
+
+
+def _forward(q, k, v, bias, sm_scale, num_heads, seed, rate):
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, bias, sm_scale, num_heads, seed, rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    kernels.check_inputs("flash_attention", q, k, v, bias)
+    _check(q, k, v, bias, num_heads)
+    b, t, m = q.shape
     out = torch.empty_like(q)
     lib = kernels.library()
     kernels.LAUNCHES["flash_attention"] += 1
     err = lib.vg_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, t, num_heads, m // num_heads, float(sm_scale),
-        kernels.dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream,
+        b, t, num_heads, m // num_heads, float(sm_scale), kernels.dtype_code(q.dtype),
+        *kernels.dropout_args(seed, rate, _keep_scale(rate) if rate > 0.0 else 1.0),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(err, "flash_attention")
     return out
+
+
+def _backward(q, k, v, bias, d_out, sm_scale, num_heads, seed, rate, need_bias):
+    if q.device.type == "cpu":
+        dq, dk, dv, d_bias = attention_backward_reference(
+            q, k, v, bias, d_out, sm_scale, num_heads, seed, rate)
+        return dq, dk, dv, (d_bias if need_bias else None)
+    d_out = d_out.contiguous()
+    kernels.check_inputs("flash_attention_bwd", q, k, v, bias, d_out)
+    _check(q, k, v, bias, num_heads)
+    if d_out.shape != q.shape or d_out.dtype != q.dtype:
+        raise ValueError(f"d_out must match q: {d_out.shape} {d_out.dtype}")
+    b, t, m = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    stats = torch.empty((b, num_heads, t, 3), dtype=torch.float32, device=q.device)
+    part = (torch.empty((b, num_heads, t), dtype=torch.float32, device=q.device)
+            if need_bias else None)
+    lib = kernels.library()
+    kernels.LAUNCHES["flash_attention_bwd"] += 1
+    err = lib.vg_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), d_out.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        part.data_ptr() if need_bias else None, stats.data_ptr(),
+        b, t, num_heads, m // num_heads, float(sm_scale), kernels.dtype_code(q.dtype),
+        *kernels.dropout_args(seed, rate, _keep_scale(rate) if rate > 0.0 else 1.0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(err, "flash_attention_bwd")
+    return dq, dk, dv, (part.sum(dim=1) if need_bias else None)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, sm_scale, num_heads, seed, rate):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.args = (sm_scale, num_heads, seed, rate)
+        return _forward(q, k, v, bias, sm_scale, num_heads, seed, rate)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, d_bias = _backward(
+            q, k, v, bias, d_out, *ctx.args, need_bias=ctx.needs_input_grad[3])
+        return dq, dk, dv, d_bias, None, None, None, None
+
+
+def flash_attention(q, k, v, bias, sm_scale: float, num_heads: int, rate: float = 0.0,
+                    seed: int = 0):
+    """``dropout(softmax(q·kᵀ·scale + bias))·v`` per head on packed
+    ``[B, T, H·D]``, differentiable in q, k, v and bias.
+
+    ``bias``: ``[B, T]`` fp32, 0 for real keys and −1e9 for masked ones;
+    ``rate``, ``seed``: dropout of the probabilities (none at ``rate=0``).
+    CUDA tensors go through the kernels (T ≤ 512, D ≤ 128, fp32 or bf16,
+    contiguous); CPU tensors through the plain twins.
+    """
+    return _FlashAttention.apply(q, k, v, bias, float(sm_scale), int(num_heads),
+                                 int(seed), float(rate))

@@ -26,25 +26,39 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vibertgrid_tpu_torch"
-SOURCES = ("flash_attention.cu", "fused_ffn.cu", "bertgrid_scatter.cu", "errors.cu")
+SOURCES = (
+    "flash_attention.cu", "flash_attention_bwd.cu", "fused_ffn.cu",
+    "bertgrid_scatter.cu", "bertgrid_scatter_bwd.cu", "errors.cu",
+)
 HEADERS = ("common.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libvibertgrid_kernels.so"
 
 # Launches per kernel since the last reset_launch_counts().
-LAUNCHES = {"flash_attention": 0, "fused_ffn": 0, "bertgrid_scatter": 0}
+LAUNCHES = {
+    "flash_attention": 0, "flash_attention_bwd": 0, "fused_ffn": 0, "fused_ffn_saved": 0,
+    "bertgrid_scatter": 0, "bertgrid_scatter_bwd": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
+_DROPOUT = [_I, _I, _U, _F]  # on, seed, threshold, scale: see dropout_args()
 _SIGNATURES = {
-    # q, k, v, bias, out, B, T, H, D, scale, dtype, stream
-    "vg_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, w1, b1, w2, b2, gamma, beta, out, N, D, F, eps, dtype, stream
-    "vg_fused_ffn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # q, k, v, bias, out, B, T, H, D, scale, dtype, dropout..., stream
+    "vg_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, *_DROPOUT, _P],
+    # q, k, v, bias, d_out, dq, dk, dv, d_bias_part, stats, B, T, H, D, scale, dtype,
+    # dropout..., stream
+    "vg_flash_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, *_DROPOUT, _P],
+    # x, w1, b1, w2, b2, gamma, beta, out, h1, yhat, rsig, N, D, F, eps, dtype,
+    # dropout..., stream
+    "vg_fused_ffn": [_P] * 11 + [_I, _I, _I, _F, _I, *_DROPOUT, _P],
     # emb, boxes, mask, out, B, S, row_bytes, height, width, stride, stream
     "vg_bertgrid_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # d_out, boxes, mask, d_emb, B, S, D, height, width, stride, dtype, stream
+    "vg_bertgrid_scatter_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -135,6 +149,16 @@ def dtype_code(dtype: torch.dtype) -> int:
     if dtype == torch.bfloat16:
         return 1
     raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+
+
+def dropout_args(seed: int, rate: float, scale: float) -> tuple[int, int, int, float]:
+    """The kernels' dropout arguments ``(on, seed, threshold, scale)``: an
+    element is kept where its hash reaches ``int(rate·2³²)``, compared
+    unsigned; ``seed`` is passed as a wrapped int32."""
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    seed = ((int(seed) + 2**31) % 2**32) - 2**31
+    return 1, seed, int(rate * float(2**32)), scale
 
 
 def check_inputs(name: str, *tensors: torch.Tensor) -> None:

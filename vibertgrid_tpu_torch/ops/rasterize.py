@@ -23,14 +23,20 @@ def box_winner_map(
     width: int,
     stride: int = 1,
     chunk: int = 32,
+    values: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``[..., height, width]`` int32: 0 where no valid box covers the
     cell, else 1 + the index of the last covering valid box. Boxes are
-    taken ``chunk`` at a time to bound the ``[chunk, H, W]`` working set."""
+    taken ``chunk`` at a time to bound the ``[chunk, H, W]`` working set.
+
+    ``values`` (shaped as ``box_mask``) replaces the painted value
+    ``s + 1`` of segment ``s``; it must be positive and strictly increasing
+    in ``s`` for later-wins to hold under the maximum. Callers use it to
+    carry a payload beside the index."""
     if boxes.ndim == 2:
         return box_winner_map(
             boxes[None], box_mask[None], height=height, width=width,
-            stride=stride, chunk=chunk,
+            stride=stride, chunk=chunk, values=None if values is None else values[None],
         )[0]
     b, s, _ = boxes.shape
     dev = boxes.device
@@ -39,14 +45,17 @@ def box_winner_map(
     valid = box_mask.to(torch.bool)
     rows = torch.arange(height, dtype=torch.int32, device=dev)
     cols = torch.arange(width, dtype=torch.int32, device=dev)
-    idx = torch.arange(1, s + 1, dtype=torch.int32, device=dev)
+    if values is None:
+        idx = torch.arange(1, s + 1, dtype=torch.int32, device=dev).expand(b, s)
+    else:
+        idx = values.to(torch.int32)
     winner = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
     for lo in range(0, s, chunk):
         sl = slice(lo, lo + chunk)
         in_rows = (
             (rows >= y0[:, sl, None]) & (rows < y1[:, sl, None]) & valid[:, sl, None]
         )  # [B, C, H]
-        rowv = torch.where(in_rows, idx[sl, None], 0)
+        rowv = torch.where(in_rows, idx[:, sl, None], 0)
         colm = ((cols >= x0[:, sl, None]) & (cols < x1[:, sl, None])).to(torch.int32)
         cwin = (rowv[:, :, :, None] * colm[:, :, None, :]).amax(dim=1)
         winner = torch.maximum(winner, cwin)
@@ -74,3 +83,34 @@ def bertgrid_scatter(
     emb0 = torch.cat([embeddings.new_zeros((b, 1, d)), embeddings], dim=1)
     batch = torch.arange(b, device=embeddings.device)[:, None, None]
     return emb0[batch, winner.long()]
+
+
+def rasterize_label_maps(
+    seg_classes: torch.Tensor,
+    boxes: torch.Tensor,
+    box_mask: torch.Tensor,
+    *,
+    height: int,
+    width: int,
+    chunk: int = 32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel training targets of the auxiliary segmentation head, at
+    stride 1: ``(pos_neg, class_map)``, both ``[..., height, width]`` int32.
+
+    - ``pos_neg``: 0 = background, 1 = key text (class > 0), 2 = other text;
+    - ``class_map``: the winning segment's class id, 0 for background.
+
+    The class rides beside the winning index as ``(s+1)·1024 + class``
+    (monotone in ``s``, so later-wins still holds), which saves a
+    full-resolution gather; class ids are clipped to the 10-bit field."""
+    s = boxes.shape[-2]
+    index = torch.arange(1, s + 1, dtype=torch.int32, device=boxes.device)
+    encoded_vals = index * 1024 + seg_classes.to(torch.int32).clamp(0, 1023)
+    encoded = box_winner_map(
+        boxes, box_mask, height=height, width=width, stride=1, chunk=chunk,
+        values=encoded_vals,
+    )
+    covered = encoded > 0
+    class_map = torch.where(covered, encoded % 1024, 0).to(torch.int32)
+    pos_neg = torch.where(covered, torch.where(class_map > 0, 1, 2), 0).to(torch.int32)
+    return pos_neg, class_map

@@ -1,0 +1,52 @@
+"""Seeds for the random sites of a training forward.
+
+Every random site of the port (each dropout, each sampled loss) takes an
+explicit int32 seed and hashes its own element indices with it
+(:mod:`vibertgrid_tpu_torch.ops.dropout`). A :class:`SeedStream` hands those
+seeds out in call order from a CPU ``torch.Generator``, so drawing them
+never waits for the device. It takes the place of flax's
+``make_rng("dropout")`` and of the PRNG keys the JAX package's heads take.
+
+The order of the draws in one training forward of
+:class:`~vibertgrid_tpu_torch.models.vibertgrid.ViBERTgridNet`:
+
+1. the text encoder: the embedding dropout; then for each layer in turn the
+   attention-probability dropout, the attention-output dropout and the FFN
+   dropout (a site whose rate is 0 draws nothing);
+2. the auxiliary segmentation head: the random-sample loss, then the OHEM
+   loss;
+3. the field-type head: the pos/neg OHEM loss, then the class OHEM loss.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+
+_INT32_MAX = 2**31 - 1
+
+
+class SeedStream:
+    """``next()`` → a fresh seed in ``[0, 2³¹−1)`` from a seeded CPU generator."""
+
+    def __init__(self, seed: int = 0):
+        self._generator = torch.Generator(device="cpu").manual_seed(seed)
+
+    def next(self) -> int:
+        return int(torch.randint(0, _INT32_MAX, (), generator=self._generator))
+
+
+class ReplaySeeds:
+    """A stream that replays a given list of seeds, then raises: for tests
+    that must give each site a known seed."""
+
+    def __init__(self, seeds: Iterable[int]):
+        self._seeds = list(seeds)
+        self._at = 0
+
+    def next(self) -> int:
+        if self._at >= len(self._seeds):
+            raise IndexError(f"ReplaySeeds: only {len(self._seeds)} seeds were given")
+        self._at += 1
+        return self._seeds[self._at - 1]

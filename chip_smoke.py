@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch/CUDA port (``vibertgrid_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
 
 1. builds the hand-written kernels from ``vibertgrid_tpu_torch/csrc``
    (``sm_90a``) into ``build/vibertgrid_tpu_torch/``;
-2. holds each of the six kernels against its plain PyTorch twin on the card,
+2. holds each of the seven kernels against its plain PyTorch twin on the card,
    in bf16, at the flagship's shapes and a ragged one (forward outputs, with
    and without dropout, and gradients), and times kernel, twin and, where one
    PyTorch call computes the same function, that call;
@@ -19,9 +20,23 @@
    backward 12, saved-residual FFN 12, scatter 1, scatter backward 1, the
    inference FFN 0), that loss and gradients are finite and that parameters
    and statistics moved, and reports ms a step, docs/s and the device time;
-5. runs the inference forward and one train step in fp32 at batch 2 on the
+5. drives the full-head model on the encoder with the fused attention
+   epilogue at the same width, depth and shapes: the inference forward
+   (launches: attention 12, epilogue 12, FFN 12, scatter 1) and the train step
+   (attention 12 + 12 backward, epilogue 12, saved-residual FFN 12, scatter
+   1 + 1), each timed in turns with the same model on the unfused epilogue
+   (unfused, fused, fused, unfused); one train step under ``ffn_impl="fused"``
+   (the residual-free FFN kernel 12 times, the saved-residual one never);
+6. drives the CRF-head model on the same encoder: train steps (finite NLL, a
+   gradient on the transitions, START and STOP still pinned) and a decode;
+7. runs the inference forward and one train step in fp32 at batch 2 on the
    card (kernels) and on the host CPU (twins) from one set of weights and
-   the same seeds, and compares them.
+   the same seeds, for the flagship and for the full-head model with the
+   fused epilogue, and the CRF decode, and compares them.
+
+``--only flagship`` is for comparing two trees on one card: run it from each
+tree's root in turns (parent, change, change, parent) in one shell command and
+read the two lines "flagship forward" and "flagship train step".
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -88,6 +103,13 @@ FP32_TRAIN_LOSS_RTOL = 1e-4
 # to its twin in fp32 at FP32_KERNEL_TOL above). The limit tells a wrong
 # backward (errors of order 1) from that noise.
 FP32_TRAIN_GRAD_RTOL = 5e-2
+# CRF decode, card vs host in fp32: the card's path, scored with the host's
+# emissions and transitions, against the host's own best path. A path score
+# sums 2 x 128 emission and transition terms of order 1-10 and the two sides'
+# emissions differ by ~1e-5, so the path that is best on the card is within
+# ~5e-3 of the best on the host; where the host's best two paths are further
+# apart than that, the tags are identical.
+CRF_PATH_SCORE_ATOL = 1e-2
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -338,28 +360,121 @@ def check_ffn_saved(dev):
     if any(a.dtype != leaf.dtype for a, leaf in zip(got_grads, leaves)):
         raise AssertionError("fused_ffn_saved: a gradient is not in its parameter's dtype")
 
-    class _Ctx:
-        saved_tensors = (x, want[1], want[2], want[3], params[0], params[2], params[4])
-        args = (DROP_SEED, DROP_RATE)
-
     with torch.no_grad():
-        want_grads = ffn._FusedFFNSaved.backward(_Ctx, dy)[:7]
+        want_grads = ffn.ffn_backward(dy, x, want[1], want[2], want[3], params[0], params[2],
+                                      params[4], DROP_SEED, DROP_RATE)
+    # The residual-free kernel with its rematerialising backward gives the same.
+    remat_leaves = [t.clone().requires_grad_() for t in (x, *masters)]
+    y_remat = ffn.fused_ffn(*remat_leaves, 1e-12, rate=DROP_RATE, seed=DROP_SEED)
+    remat_grads = torch.autograd.grad(y_remat, remat_leaves, dy, retain_graph=True)
     torch.cuda.synchronize()
-    for name, a, w in zip(("dx", "dw1", "db1", "dw2", "db2", "dg", "dbt"), got_grads, want_grads):
+    if not torch.equal(y_remat, y):
+        raise AssertionError("fused_ffn and fused_ffn_saved differ in their forward")
+    names = ("dx", "dw1", "db1", "dw2", "db2", "dg", "dbt")
+    for name, a, r, w in zip(names, got_grads, remat_grads, want_grads):
         scale = w.float().abs().max().item()
-        _assert_close(f"fused_ffn_saved {name}", a, w.to(a.dtype), atol=FFN_GRAD_RTOL * scale,
-                      rtol=FFN_GRAD_RTOL)
+        tol = dict(atol=FFN_GRAD_RTOL * scale, rtol=FFN_GRAD_RTOL)
+        _assert_close(f"fused_ffn_saved {name}", a, w.to(a.dtype), **tol)
+        _assert_close(f"fused_ffn (rematerialising) {name}", r, w.to(r.dtype), **tol)
 
     with torch.no_grad():
         ms = _time_ms(lambda: ffn._launch(x, *params, 1e-12, DROP_SEED, DROP_RATE, saved=True))
         plain_ms = _time_ms(lambda: ffn.ffn_saved_reference(x, *params, 1e-12, DROP_SEED,
                                                             DROP_RATE))
     bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
-    print(f"fused_ffn_saved backward (four matmuls + elementwise, plain PyTorch): {bwd_ms:.3f} ms")
+    remat_ms = _time_ms(lambda: torch.autograd.grad(y_remat, remat_leaves, dy, retain_graph=True))
+    print(f"fused_ffn_saved backward (four matmuls + elementwise, plain PyTorch): {bwd_ms:.3f} ms; "
+          f"fused_ffn's rematerialising backward (two more matmuls): {remat_ms:.3f} ms")
     # inputs x, W1, W2 and the small vectors; outputs y, h1, yhat, rsig
     nbytes = (3 * n * d + n * f + 2 * d * f) * 2 + (f + 3 * d + n) * 4
     bound_ms, bound_by = _bound(4 * n * d * f, nbytes)
     return _record("fused_ffn_saved", "fused_ffn.cu", "fused_ffn.py:307",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+
+
+def check_proj_ln(dev):
+    """The attention-epilogue kernel against its twin: bf16 at a ragged row
+    count and at the flagship's, with and without dropout; the dropped set
+    itself; the FMA body in fp32 and at a narrow bf16 width; the wrapper's
+    gradients (kernel forward, plain PyTorch rematerialising backward) against
+    autograd through the twin."""
+    from vibertgrid_tpu_torch.models.norm import LayerNorm
+    from vibertgrid_tpu_torch.ops import fused_ffn as ffn
+    from vibertgrid_tpu_torch.ops.dropout import keep_mask
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    proj_masters = lambda d: (randn(d, d) * d ** -0.5, randn(d) * 0.1, 1 + 0.1 * randn(d),
+                              0.1 * randn(d))  # W, b, LN scale, LN bias as a model holds them
+    d = 768
+    masters = proj_masters(d)
+    params = (masters[0].bfloat16(), *masters[1:])
+    with torch.no_grad():
+        for n in (200 - 5, B * (T + 2)):
+            ctx, res = randn(n, d).bfloat16(), randn(n, d).bfloat16()
+            for rate in (DROP_RATE, 0.0):
+                got = ffn.fused_proj_ln(ctx, res, *params, 1e-12, rate=rate, seed=DROP_SEED)
+                want = ffn.proj_ln_reference(ctx, res, *params, 1e-12, DROP_SEED, rate)
+                torch.cuda.synchronize()
+                _assert_close(f"fused_proj_ln N={n} rate={rate}", got, want, **FFN_TOL)
+        err = _max_err(got, want)
+        # The dropped set: a projection of all ones (W = 0, b = 1) on a zero
+        # residual leaves 1/(1-rate) where kept and 0 where dropped, and the
+        # LayerNorm (scale 1, bias 0) maps those to a positive and a negative value.
+        zeros, ones = torch.zeros(d, device=dev), torch.ones(d, device=dev)
+        y = ffn.fused_proj_ln(torch.zeros_like(ctx), torch.zeros_like(res),
+                              torch.zeros(d, d, device=dev), ones, ones, zeros, 1e-12,
+                              rate=0.4, seed=DROP_SEED)
+        if not torch.equal(y > 0, keep_mask((n, d), DROP_SEED, 0.4, dev)):
+            raise AssertionError("fused_proj_ln: dropped positions differ from hash_dropout's")
+
+        for dt, dd, tol in ((torch.float32, d, FP32_KERNEL_TOL), (torch.bfloat16, 64, FFN_TOL)):
+            small = proj_masters(dd)
+            small = (small[0].to(dt), *small[1:])
+            cs, rs = randn(200 - 5, dd).to(dt), randn(200 - 5, dd).to(dt)
+            got_s = ffn.fused_proj_ln(cs, rs, *small, 1e-12, rate=DROP_RATE, seed=DROP_SEED)
+            want_s = ffn.proj_ln_reference(cs, rs, *small, 1e-12, DROP_SEED, DROP_RATE)
+            torch.cuda.synchronize()
+            _assert_close(f"fused_proj_ln FMA body {dt} D={dd}", got_s, want_s, **tol, show=True)
+
+    # Gradients on the fp32 parameters at the flagship shape.
+    dy = randn(n, d).bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (ctx, res, *masters)]
+    y = ffn.fused_proj_ln(*leaves, 1e-12, rate=DROP_RATE, seed=DROP_SEED)
+    got_grads = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    if any(a.dtype != leaf.dtype for a, leaf in zip(got_grads, leaves)):
+        raise AssertionError("fused_proj_ln: a gradient is not in its tensor's dtype")
+    twin_leaves = [t.clone().requires_grad_() for t in (ctx, res, *masters)]
+    want_grads = torch.autograd.grad(
+        ffn.proj_ln_reference(*twin_leaves, 1e-12, DROP_SEED, DROP_RATE), twin_leaves, dy)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dctx", "dres", "dw", "db", "dg", "dbt"), got_grads, want_grads):
+        scale = w.float().abs().max().item()
+        _assert_close(f"fused_proj_ln {name}", a, w, atol=FFN_GRAD_RTOL * scale,
+                      rtol=FFN_GRAD_RTOL, show=True)
+
+    ln = LayerNorm(d, eps=1e-12, dtype=torch.bfloat16, device=dev)
+    w_bf, b_bf, g_bf, bt_bf = (p.bfloat16() for p in masters)
+    F = torch.nn.functional
+    with torch.no_grad():
+        ln.weight.copy_(masters[2])
+        ln.bias.copy_(masters[3])
+        ms = _time_ms(lambda: ffn.fused_proj_ln(ctx, res, *params, 1e-12))
+        drop_ms = _time_ms(lambda: ffn.fused_proj_ln(ctx, res, *params, 1e-12, rate=DROP_RATE,
+                                                     seed=DROP_SEED))
+        plain_ms = _time_ms(lambda: ffn.proj_ln_reference(ctx, res, *params, 1e-12))
+        unfused_ms = _time_ms(lambda: ln(res + F.linear(ctx, w_bf, b_bf)))
+        composed_ms = _time_ms(
+            lambda: F.layer_norm(res + F.linear(ctx, w_bf, b_bf), (d,), g_bf, bt_bf, 1e-12))
+    bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
+    print(f"fused_proj_ln: {ms:.3f} ms, with dropout {DROP_RATE} {drop_ms:.3f} ms; the encoder's "
+          f"unfused epilogue (F.linear, add, models/norm.py LayerNorm) {unfused_ms:.3f} ms; "
+          f"F.layer_norm(res + F.linear(ctx, W, b)) {composed_ms:.3f} ms (no single library "
+          f"call computes the function); rematerialising backward (plain PyTorch) {bwd_ms:.3f} ms")
+    nbytes = (3 * n * d + d * d) * 2 + 3 * d * 4
+    bound_ms, bound_by = _bound(2 * n * d * d, nbytes)
+    return _record("fused_proj_ln", "fused_proj_ln.cu", "fused_ffn.py:588",
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=None)
 
@@ -446,8 +561,29 @@ def _device_time_table(fn, wall_s, what):
     total = sum(r[1] for r in rows)
     print(f"device time by kernel, {what}: total {total / 1e3:.2f} ms "
           f"(wall {wall_s * 1e3:.2f} ms)")
-    for key, us, count in rows[:15]:
-        print(f"  {us / 1e3:8.3f} ms {100 * us / max(total, 1):5.1f}%  x{count:<4d} {key[:90]}")
+    # the top 15, and the port's own kernels (csrc/*.cu, anonymous namespace) wherever they rank
+    own = lambda key: key.startswith("void (anonymous namespace)::") and "at::" not in key
+    for i, (key, us, count) in enumerate(rows):
+        if i < 15 or own(key):
+            print(f"  {us / 1e3:8.3f} ms {100 * us / max(total, 1):5.1f}%  x{count:<4d} {key[:90]}")
+
+
+def _timed_forward(model, batch, what, iters: int = 10) -> float:
+    """Seconds per batch: the host clock around ``iters`` inference forwards
+    that end in a synchronize, after one warm forward."""
+    with torch.no_grad():
+        model(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(batch)
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    print(f"{what} bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/batch, "
+          f"{B / dt:.1f} docs/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dt
 
 
 def _assert_launches(records, launches, want, what):
@@ -481,18 +617,7 @@ def flagship_forward(dev, records):
         if row_err > 1e-5:
             raise AssertionError(f"pred_label rows do not sum to 1 (max err {row_err})")
 
-        iters = 10
-        model(batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            model(batch)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / iters
-        print(f"flagship forward bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/batch, "
-              f"{B / dt:.1f} docs/s, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        dt = _timed_forward(model, batch, "flagship forward")
         _device_time_table(lambda: model(batch), dt, "one forward")
 
     # The same evaluation forward with autograd recording: the encoder takes
@@ -510,43 +635,48 @@ def flagship_forward(dev, records):
     return B / dt, dt
 
 
-def flagship_train(dev, records):
+TRAIN_LAUNCHES = dict(flash_attention=12, flash_attention_bwd=12, fused_ffn=0, fused_ffn_saved=12,
+                      fused_proj_ln=0, bertgrid_scatter=1, bertgrid_scatter_bwd=1)
+TRAIN_WATCH = ("bert_model.layer.0.intermediate.weight", "bert_model.word_embeddings.weight",
+               "backbone.stem_conv.weight", "field_type_head.category_net.out.weight",
+               "semantic_segmentation_head.encoder.conv1.weight")
+
+
+def train_phase(dev, records, config, what, want, watch=(), iters: int = 5, table: bool = True):
+    """One checked train step of ``config`` at the flagship shapes (launch
+    counts, finite loss and gradients, a gradient on every parameter, moved
+    parameters and statistics), two more warm ones, then ``iters`` timed.
+    Returns ``(seconds a step, state)``."""
     from vibertgrid_tpu_torch.entry import train_entry
     from vibertgrid_tpu_torch.ops import kernels
     from vibertgrid_tpu_torch.train.seeds import SeedStream
 
-    state, train_step, batch = train_entry(device=dev, seed=0)
+    state, train_step, batch = train_entry(device=dev, seed=0, config=config)
     model = state.model
     seeds = SeedStream(0)
-    watch = {name: model.get_parameter(name) for name in (
-        "bert_model.layer.0.intermediate.weight", "bert_model.word_embeddings.weight",
-        "backbone.stem_conv.weight", "field_type_head.category_net.out.weight",
-        "semantic_segmentation_head.encoder.conv1.weight")}
+    params = {name: model.get_parameter(name) for name in (*TRAIN_WATCH, *watch)}
     stats = {name: model.get_buffer(name) for name in (
         "backbone.stem_bn.running_mean", "late_fusion.roi_embedding.bn1.running_var",
         "semantic_segmentation_head.encoder.bn2.running_var")}
-    before = {k: v.detach().clone() for k, v in {**watch, **stats}.items()}
+    before = {k: v.detach().clone() for k, v in {**params, **stats}.items()}
 
     kernels.reset_launch_counts()
     _, loss = train_step(state, batch, seeds)
     torch.cuda.synchronize()
-    want = dict(flash_attention=12, flash_attention_bwd=12, fused_ffn=0, fused_ffn_saved=12,
-                bertgrid_scatter=1, bertgrid_scatter_bwd=1)
-    _assert_launches(records, dict(kernels.LAUNCHES), want, "train step")
+    _assert_launches(records, dict(kernels.LAUNCHES), want, what)
     losses = [loss.item()]
     if not all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
                if p.grad is not None):
-        raise AssertionError("train step: a gradient is not finite")
+        raise AssertionError(f"{what}: a gradient is not finite")
     no_grad = [n for n, p in model.named_parameters() if p.grad is None]
     if no_grad:
-        raise AssertionError(f"train step: no gradient reached {no_grad[:5]}")
-    for name, tensor in {**watch, **stats}.items():
+        raise AssertionError(f"{what}: no gradient reached {no_grad[:5]}")
+    for name, tensor in {**params, **stats}.items():
         if torch.equal(tensor, before[name]):
-            raise AssertionError(f"train step left {name} unchanged")
+            raise AssertionError(f"{what} left {name} unchanged")
 
     for _ in range(2):  # warm steps two and three
         losses.append(train_step(state, batch, seeds)[1].item())
-    iters = 5
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -556,20 +686,134 @@ def flagship_train(dev, records):
     dt = (time.perf_counter() - t0) / iters
     losses.append(loss.item())
     if not all(x == x and abs(x) < 1e4 for x in losses):
-        raise AssertionError(f"train step: losses {losses}")
-    print(f"flagship train step bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/step, "
+        raise AssertionError(f"{what}: losses {losses}")
+    print(f"{what} bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/step, "
           f"{B / dt:.1f} docs/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss at steps 1-3 and "
           f"{3 + iters}: {', '.join(f'{x:.4f}' for x in losses)}")
-    _device_time_table(lambda: train_step(state, batch, seeds), dt, "one train step")
+    if table:
+        _device_time_table(lambda: train_step(state, batch, seeds), dt, f"one {what}")
+    return dt, state
+
+
+def flagship_train(dev, records):
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN
+
+    dt, _ = train_phase(dev, records, FLAGSHIP_TRAIN, "flagship train step", TRAIN_LAUNCHES)
     return B / dt, dt
 
 
-def fp32_card_vs_host(dev):
-    from vibertgrid_tpu_torch.entry import FLAGSHIP, make_batch
+def full_fused_forward(dev, records):
+    """The full-head model's inference forward with the fused attention
+    epilogue, and beside it the same weights on the unfused epilogue."""
+    from vibertgrid_tpu_torch.entry import FULL_FUSED, make_batch
+    from vibertgrid_tpu_torch.models import ViBERTgridNet
+    from vibertgrid_tpu_torch.ops import kernels
+
+    fused = ViBERTgridNet(
+        FULL_FUSED, device=dev, generator=torch.Generator(device=dev).manual_seed(0)).eval()
+    unfused = ViBERTgridNet(dataclasses.replace(FULL_FUSED, text_config=None), device=dev).eval()
+    unfused.load_state_dict(fused.state_dict(), strict=True)
+    batch = make_batch(B, H, W, T, S, VOCAB, seed=0, device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        pred = fused(batch).pred_label
+        torch.cuda.synchronize()
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want.update(flash_attention=12, fused_proj_ln=12, fused_ffn=12, bertgrid_scatter=1)
+        _assert_launches(records, dict(kernels.LAUNCHES), want, "full-head forward, fused epilogue")
+        if pred.shape != (B, S, 5) or not bool(((pred >= 0) & (pred <= 1)).all()):
+            raise AssertionError(f"full head: pred_label bad, shape {tuple(pred.shape)}")
+        kernels.reset_launch_counts()
+        ref = unfused(batch).pred_label
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["fused_proj_ln"] != 0:
+            raise AssertionError("the unfused epilogue launched the epilogue kernel")
+        # bf16 through 12 layers, the unfused side rounding each projection to
+        # bf16 first; a gate at a near-tie of 0.5 zeroes a whole row of class scores
+        diff = (pred - ref).abs()
+        close = (diff <= 2 ** -4).float().mean().item()
+        print(f"full head, fused vs unfused epilogue: max |diff| {diff.max().item():.3e}, "
+              f"{100 * close:.2f}% of the scores within 2^-4; predicted positive "
+              f"{100 * (pred[..., 1:].sum(-1) > 0).float().mean().item():.1f}% of the segments")
+        if close < 0.99:
+            raise AssertionError("full head: fused and unfused epilogues disagree")
+    times = [_timed_forward(m, batch, f"full-head forward, {name} epilogue")
+             for name, m in (("unfused", unfused), ("fused", fused), ("fused", fused),
+                             ("unfused", unfused))]
+    print(f"full-head forward, unfused / fused / fused / unfused epilogue: "
+          f"{' / '.join(f'{t * 1e3:.2f}' for t in times)} ms")
+    with torch.no_grad():
+        _device_time_table(lambda: fused(batch), times[1], "one full-head forward, fused epilogue")
+
+
+def full_fused_train(dev, records):
+    """The full-head model's train step with the fused epilogue, in turns with
+    the unfused one; then one configuration on the residual-free FFN kernel."""
+    from vibertgrid_tpu_torch.entry import FULL_FUSED
+
+    unfused = dataclasses.replace(FULL_FUSED, text_config=None)
+    watch = ("semantic_segmentation_head.binary_bank.weight",
+             "field_type_head.pos_neg_net.out.weight", "bert_model.layer.0.attention.out.weight")
+    want_fused = dict(TRAIN_LAUNCHES, fused_proj_ln=12)
+    times = []
+    for i, (name, cfg, want) in enumerate((
+            ("unfused", unfused, TRAIN_LAUNCHES), ("fused", FULL_FUSED, want_fused),
+            ("fused", FULL_FUSED, want_fused), ("unfused", unfused, TRAIN_LAUNCHES))):
+        dt, state = train_phase(dev, records, cfg, f"full-head train step, {name} epilogue", want,
+                                watch, table=i < 2)
+        times.append(dt)
+        del state
+        torch.cuda.empty_cache()
+    print(f"full-head train step, unfused / fused / fused / unfused epilogue: "
+          f"{' / '.join(f'{t * 1e3:.2f}' for t in times)} ms")
+    remat = dataclasses.replace(FULL_FUSED, ffn_impl="fused")
+    train_phase(dev, records, remat, 'full-head train step, fused epilogue, ffn_impl="fused"',
+                dict(want_fused, fused_ffn=12, fused_ffn_saved=0), watch, iters=3, table=False)
+    torch.cuda.empty_cache()
+
+
+def crf_fused(dev, records):
+    """The CRF-head model on the encoder with the fused epilogue: train steps,
+    then a decode."""
+    from vibertgrid_tpu_torch.entry import CRF_FUSED, make_batch
+    from vibertgrid_tpu_torch.ops import kernels
+
+    name = "field_type_head.transitions"
+    _, state = train_phase(dev, records, CRF_FUSED, "CRF-head train step, fused epilogue",
+                           dict(TRAIN_LAUNCHES, fused_proj_ln=12),
+                           (name, "semantic_segmentation_head.binary_bank.weight"))
+    model = state.model.eval()
+    trans = model.get_parameter(name)
+    k = trans.shape[0]
+    # No path moves to START or from STOP, so no gradient reaches the pins; as
+    # in the JAX package nothing re-pins them, and the SGD weight decay moves
+    # them by lr * wd * 1e4 = 0.025 a step.
+    pins = torch.cat([trans[k - 2, :], trans[:, k - 1]]).detach()
+    pin_grads = torch.cat([trans.grad[k - 2, :], trans.grad[:, k - 1]])
+    if not bool((pins < -9999).all()) or not bool((pin_grads == 0).all()):
+        raise AssertionError(f"CRF: START / STOP pins moved: {pins.max().item()}")
+    if not trans.grad.abs().sum().item() > 0:
+        raise AssertionError("CRF: no gradient on the transitions")
+    batch = make_batch(B, H, W, T, S, VOCAB, seed=0, device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        tags = model(batch).pred_label
+        torch.cuda.synchronize()
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(flash_attention=12, fused_proj_ln=12, fused_ffn=12, bertgrid_scatter=1)
+    _assert_launches(records, dict(kernels.LAUNCHES), want, "CRF decode")
+    if tags.shape != (B, S) or tags.dtype != torch.int64 or not bool(
+            ((tags >= 0) & (tags < k - 2)).all()):
+        raise AssertionError(f"CRF decode: tags bad, shape {tuple(tags.shape)} {tags.dtype}")
+    _timed_forward(model, batch, "CRF-head forward with decode, fused epilogue", iters=5)
+
+
+def fp32_card_vs_host(dev, config, what):
+    from vibertgrid_tpu_torch.entry import make_batch
     from vibertgrid_tpu_torch.models import ViBERTgridNet
 
-    cfg = dataclasses.replace(FLAGSHIP, compute_dtype=torch.float32)
+    cfg = dataclasses.replace(config, compute_dtype=torch.float32)
     host = ViBERTgridNet(cfg, device="cpu", generator=torch.Generator().manual_seed(4)).eval()
     card = copy.deepcopy(host).to(dev)
     batch = make_batch(2, H, W, T, S, VOCAB, seed=5, device="cpu")
@@ -577,20 +821,51 @@ def fp32_card_vs_host(dev):
         want = host(batch).pred_label
         got = card(batch.to(dev)).pred_label.cpu()
     err = _max_err(got, want)
-    print(f"fp32 forward B=2, card vs host: max |diff| {err:.3e} "
-          f"(tol {FP32_FORWARD_ATOL}), probabilities in [{want.min().item():.3f}, "
+    print(f"fp32 forward B=2, {what}, card vs host: max |diff| {err:.3e} "
+          f"(tol {FP32_FORWARD_ATOL}), scores in [{want.min().item():.3f}, "
           f"{want.max().item():.3f}]")
     if not err <= FP32_FORWARD_ATOL:
-        raise AssertionError(f"fp32 card forward differs from host: {err}")
+        raise AssertionError(f"fp32 card forward differs from host ({what}): {err}")
 
 
-def fp32_train_card_vs_host(dev):
+def fp32_crf_decode_card_vs_host(dev):
+    """The CRF decode in fp32 at batch 2: the card's tags must be a best path
+    of the host's model within CRF_PATH_SCORE_ATOL."""
+    from vibertgrid_tpu_torch.entry import CRF_FUSED, make_batch
+    from vibertgrid_tpu_torch.models import ViBERTgridNet
+    from vibertgrid_tpu_torch.ops import crf
+
+    cfg = dataclasses.replace(CRF_FUSED, compute_dtype=torch.float32)
+    host = ViBERTgridNet(cfg, device="cpu", generator=torch.Generator().manual_seed(4)).eval()
+    card = copy.deepcopy(host).to(dev)
+    batch = make_batch(2, H, W, T, S, VOCAB, seed=5, device="cpu")
+    kept = {}
+    hook = host.field_type_head.category_net.register_forward_hook(
+        lambda module, args, out: kept.update(feats=out.float()))
+    with torch.no_grad():
+        want = host(batch).pred_label
+        got = card(batch.to(dev)).pred_label.cpu()
+        hook.remove()
+        trans = host.field_type_head.transitions
+        lengths = batch.box_mask.sum(dim=1)
+        best = crf._gold_score(trans, kept["feats"], want, lengths)
+        score = crf._gold_score(trans, kept["feats"], got, lengths)
+    same = (got == want).float().mean().item()
+    gap = (best - score).abs().max().item()
+    print(f"fp32 CRF decode B=2, card vs host: {100 * same:.2f}% of the tags identical, the "
+          f"card's paths within {gap:.3e} of the host's best scores "
+          f"{[round(x, 3) for x in best.tolist()]} (tol {CRF_PATH_SCORE_ATOL})")
+    if not gap <= CRF_PATH_SCORE_ATOL:
+        raise AssertionError(f"fp32 CRF decode: the card's path scores {gap} below the host's best")
+
+
+def fp32_train_card_vs_host(dev, config, what, names):
     """One train step in fp32 at batch 2, dropout on, the same seeds: the
     card (kernels, cuDNN) against the host CPU (twins) from one state."""
-    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, TRAIN_SHAPE, train_entry
+    from vibertgrid_tpu_torch.entry import TRAIN_SHAPE, train_entry
     from vibertgrid_tpu_torch.train.seeds import SeedStream
 
-    cfg = dataclasses.replace(FLAGSHIP_TRAIN, compute_dtype=torch.float32)
+    cfg = dataclasses.replace(config, compute_dtype=torch.float32)
     shape = dict(TRAIN_SHAPE, b=2)
     host_state, train_step, batch = train_entry("cpu", seed=6, config=cfg, shape=shape)
     card_state = copy.deepcopy(host_state)
@@ -601,22 +876,27 @@ def fp32_train_card_vs_host(dev):
     _, want = train_step(host_state, batch, SeedStream(7))
     _, got = train_step(card_state, batch.to(dev), SeedStream(7))
     want, got = want.item(), got.item()
-    print(f"fp32 train step B=2, card vs host: loss {got:.6f} vs {want:.6f}")
+    print(f"fp32 train step B=2, {what}, card vs host: loss {got:.6f} vs {want:.6f}")
     if not abs(got - want) <= FP32_TRAIN_LOSS_RTOL * abs(want):
-        raise AssertionError(f"fp32 train step: loss on the card {got}, on the host {want}")
+        raise AssertionError(
+            f"fp32 train step ({what}): loss on the card {got}, on the host {want}")
     for name in ("bert_model.layer.0.attention.query.weight",
                  "bert_model.layer.11.intermediate.weight",
                  "bert_model.word_embeddings.weight", "backbone.stem_conv.weight",
-                 "backbone.early_fusion.weight", "field_type_head.category_net.out.weight"):
+                 "backbone.early_fusion.weight", "field_type_head.category_net.out.weight",
+                 *names):
         g_host = host_state.model.get_parameter(name).grad
         g_card = card_state.model.get_parameter(name).grad.cpu()
         err = ((g_card - g_host).norm() / g_host.norm()).item()
         print(f"  grad {name}: |card - host| / |host| = {err:.3e}")
         if not err <= FP32_TRAIN_GRAD_RTOL:
-            raise AssertionError(f"fp32 train step: gradient of {name} differs by {err}")
+            raise AssertionError(f"fp32 train step ({what}): gradient of {name} differs by {err}")
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--only", "flagship"]):
+        print("usage: python3 chip_smoke.py [--only flagship]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 1
@@ -634,13 +914,28 @@ def main() -> int:
     kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
+    if argv:  # the two end-to-end numbers of the flagship, for comparing trees
+        flagship_forward(dev, [])
+        flagship_train(dev, [])
+        return 0
+    from vibertgrid_tpu_torch.entry import FLAGSHIP, FLAGSHIP_TRAIN, FULL_FUSED
+
     records = [check(dev) for check in (
-        check_attention, check_attention_bwd, check_ffn, check_ffn_saved, check_scatter,
-        check_scatter_bwd)]
+        check_attention, check_attention_bwd, check_ffn, check_ffn_saved, check_proj_ln,
+        check_scatter, check_scatter_bwd)]
     flagship_forward(dev, records)
     flagship_train(dev, records)
-    fp32_card_vs_host(dev)
-    fp32_train_card_vs_host(dev)
+    full_fused_forward(dev, records)
+    full_fused_train(dev, records)
+    crf_fused(dev, records)
+    fp32_card_vs_host(dev, FLAGSHIP, "flagship")
+    fp32_train_card_vs_host(dev, FLAGSHIP_TRAIN, "flagship", ())
+    fp32_card_vs_host(dev, FULL_FUSED, "full head, fused epilogue")
+    fp32_train_card_vs_host(
+        dev, FULL_FUSED, "full head, fused epilogue",
+        ("bert_model.layer.0.attention.out.weight", "field_type_head.pos_neg_net.out.weight",
+         "semantic_segmentation_head.binary_bank.weight"))
+    fp32_crf_decode_card_vs_host(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -657,4 +952,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,6 +12,7 @@ they skip where ``torch.cuda.is_available()`` is false.
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -42,7 +43,8 @@ def _port_files():
 def test_scan_covers_every_sub_package():
     scanned = {p.relative_to(PORT).parts[0] for p in _port_files() if p.is_relative_to(PORT)}
     assert {"models", "ops", "train", "entry.py", "convert.py"} <= scanned
-    assert PORT / "train" / "state.py" in _port_files()
+    assert {PORT / "train" / "state.py", PORT / "train" / "checkpoint.py",
+            PORT / "ops" / "crf.py"} <= set(_port_files())
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -58,6 +60,7 @@ def test_port_import_leaves_jax_unloaded():
         "import vibertgrid_tpu_torch.entry, vibertgrid_tpu_torch.convert\n"
         "import vibertgrid_tpu_torch.models.vibertgrid, vibertgrid_tpu_torch.train\n"
         "import vibertgrid_tpu_torch.ops.losses, vibertgrid_tpu_torch.ops.dropout\n"
+        "import vibertgrid_tpu_torch.ops.crf, vibertgrid_tpu_torch.train.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -119,9 +122,14 @@ def test_wrappers_use_twins_on_cpu_and_count_no_launch():
     emb.requires_grad_()
     grid_scatter(emb, boxes, mask, height=4, width=4).sum().backward()
     assert leaves[0].grad is not None and emb.grad is not None
+    from vibertgrid_tpu_torch.ops.fused_ffn import fused_proj_ln, proj_ln_reference
+
+    proj = (x, torch.randn(10, 64, generator=g), torch.randn(64, 64, generator=g),
+            torch.zeros(64), torch.ones(64), torch.zeros(64), 1e-12)
+    torch.testing.assert_close(fused_proj_ln(*proj), proj_ln_reference(*proj), rtol=0, atol=0)
     assert set(kernels.LAUNCHES) == {
         "flash_attention", "flash_attention_bwd", "fused_ffn", "fused_ffn_saved",
-        "bertgrid_scatter", "bertgrid_scatter_bwd"}
+        "fused_proj_ln", "bertgrid_scatter", "bertgrid_scatter_bwd"}
     assert not any(kernels.LAUNCHES.values())
 
 
@@ -145,26 +153,40 @@ def test_dropout_rates_raise():
     ids, mask = torch.randint(3, 500, (1, 12)), torch.ones(1, 12, dtype=torch.int32)
     with pytest.raises(ValueError, match="seed stream"):
         encoder(ids, mask, deterministic=False)
-    # embedding + 2 layers x (attention, attention output, FFN) = 7 draws
-    seeds = ReplaySeeds(range(7))
-    encoder(ids, mask, deterministic=False, seeds=seeds)
-    with pytest.raises(IndexError):
-        seeds.next()
+    # embedding + 2 layers x (attention, attention output, FFN) = 7 draws,
+    # with the unfused and with the fused attention epilogue
+    fused = TextEncoder(dataclasses.replace(TextEncoderConfig.tiny(), attn_epilogue="fused"),
+                        device="cpu")
+    for model in (encoder, fused):
+        seeds = ReplaySeeds(range(7))
+        model(ids, mask, deterministic=False, seeds=seeds)
+        with pytest.raises(IndexError):
+            seeds.next()
     a, b = SeedStream(5), SeedStream(5)
     assert [a.next() for _ in range(4)] == [b.next() for _ in range(4)]
 
 
 def test_unported_paths_raise():
+    """What the port does not know raises; every classifier mode the JAX
+    package builds constructs and runs."""
     from vibertgrid_tpu_torch.entry import make_batch
     from vibertgrid_tpu_torch.models import ModelConfig, ViBERTgridNet
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
 
-    for mode in ("full", "crf"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ViBERTgridNet(ModelConfig(bert_version="tiny-bert-test", classifier_mode=mode),
-                          device="cpu")
+    with pytest.raises(ValueError, match="classifier_mode"):
+        ViBERTgridNet(ModelConfig(bert_version="tiny-bert-test", classifier_mode="bio"),
+                      device="cpu")
+    batch = make_batch(1, 64, 64, 510, 4, 512, device="cpu")
+    for mode, shape in (("full", (1, 4, 5)), ("crf", (1, 4))):
+        net = ViBERTgridNet(ModelConfig(bert_version="tiny-bert-test", classifier_mode=mode),
+                            device="cpu")
+        with torch.no_grad():
+            out = net(batch, compute_loss=True)
+        assert torch.isfinite(out.total_loss) and out.pred_label.shape == shape
+        out = net(batch, train=True, compute_loss=True, seeds=SeedStream(0))
+        assert out.total_loss.requires_grad
     # training and the losses are ported: the simplified model takes both
     net = ViBERTgridNet(ModelConfig(bert_version="tiny-bert-test"), device="cpu")
-    batch = make_batch(1, 64, 64, 510, 4, 512, device="cpu")
     with torch.no_grad():
         out = net(batch, compute_loss=True)
     assert torch.isfinite(out.total_loss) and out.pred_mask.shape == (1, 64, 64, 3)
@@ -221,8 +243,8 @@ def test_kernels_match_twins_on_cuda(cuda_device):
     import chip_smoke
 
     for check in (chip_smoke.check_attention, chip_smoke.check_attention_bwd,
-                  chip_smoke.check_ffn, chip_smoke.check_ffn_saved, chip_smoke.check_scatter,
-                  chip_smoke.check_scatter_bwd):
+                  chip_smoke.check_ffn, chip_smoke.check_ffn_saved, chip_smoke.check_proj_ln,
+                  chip_smoke.check_scatter, chip_smoke.check_scatter_bwd):
         record = check(cuda_device)
         assert record["ms"] > 0
 

@@ -202,16 +202,28 @@ def test_fused_ffn_saved_gradients_match_jax(rate):
         np.testing.assert_allclose(_np(a), w, atol=2e-5, rtol=1e-5, err_msg=name)
 
 
-def test_fused_ffn_raises_on_a_gradient_path():
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_ffn_gradients_match_jax(rate):
+    """``fused_ffn`` on a gradient path: the residual-free forward with the
+    rematerialising backward, against the JAX package's remat VJP."""
+    from vibertgrid_tpu.ops.fused_ffn import fused_ffn as jax_ffn
     from vibertgrid_tpu_torch.ops.fused_ffn import fused_ffn
 
-    x, w1, b1, w2, b2, g, bt, _ = _ffn_case(4, 64, 128, seed=10)
-    args = [_t(a) for a in (x, w1.T, b1, w2.T, b2, g, bt)]
-    args[0].requires_grad_()
-    with pytest.raises(RuntimeError, match="fused_ffn_saved"):
-        fused_ffn(*args, 1e-12)
-    with torch.no_grad():
-        assert fused_ffn(*args, 1e-12).shape == (4, 64)
+    x, w1, b1, w2, b2, g, bt, dy = _ffn_case(40, 64, 128, seed=10)
+    seed, eps = 17, 1e-12
+    fn = lambda *a: jnp.sum(jax_ffn(*a, jnp.int32(seed), eps, rate, True) * jnp.asarray(dy))
+    want = jax.grad(fn, argnums=tuple(range(7)))(
+        *(jnp.asarray(a) for a in (x, w1, b1, w2, b2, g, bt)))
+    leaves = [_t(a).requires_grad_() for a in (x, w1.T, b1, w2.T, b2, g, bt)]
+    out = fused_ffn(*leaves, eps, rate=rate, seed=seed)
+    got = torch.autograd.grad(out, leaves, _t(dy))
+    for name, a, w in zip(("dx", "dw1", "db1", "dw2", "db2", "dg", "dbt"), got, want):
+        w = np.asarray(w).T if name in ("dw1", "dw2") else np.asarray(w)
+        # fp32 both sides, sums of up to 128 products in another order
+        np.testing.assert_allclose(_np(a), w, atol=2e-5, rtol=1e-5, err_msg=name)
+    with torch.no_grad():  # and without a gradient path, the same values
+        np.testing.assert_array_equal(_np(fused_ffn(*leaves, eps, rate=rate, seed=seed)),
+                                      _np(out.detach()))
 
 
 # ---------------------------------------------------------------- scatter

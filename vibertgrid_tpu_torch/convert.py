@@ -10,7 +10,8 @@ port names its modules after the JAX tree, so only the leaves change:
 - Dense ``kernel`` ``[in, out]`` → Linear ``weight`` ``[out, in]``;
 - norm ``scale`` → ``weight``; BatchNorm statistics ``mean``/``var`` →
   ``running_mean``/``running_var``;
-- ``Embed.embedding`` → ``Embedding.weight``;
+- ``Embed.embedding`` → ``Embedding.weight``; the CRF head's ``transitions``
+  keeps its name and layout;
 - the encoder's ``layer_{i}`` → ``layer.{i}`` (an ``nn.ModuleList``).
 
 :func:`optimizer_state_from_optax` does the same for the JAX package's dual
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 _LEAF = {"scale": "weight", "embedding": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var", "transitions": "transitions"}
 
 
 def _leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:

@@ -2,12 +2,15 @@
 
 - :func:`make_batch` builds the same synthetic batch, from the same numpy
   draws, as the JAX package's ``__graft_entry__._make_batch``.
-- :func:`entry` returns the flagship inference forward (BERT-base-uncased,
-  ResNet-34-FPN, simplified head, bf16) and its arguments, randomly
-  initialised from a seeded generator.
-- :func:`train_entry` returns the flagship train step (the same model with
-  the losses' OHEM and sampling counts, SGD + AdamW with bf16 state), its
-  state and a batch at the shapes the JAX package times training at.
+- :func:`entry` returns an inference forward and its arguments, the model
+  randomly initialised from a seeded generator; by default the flagship
+  (BERT-base-uncased, ResNet-34-FPN, simplified head, bf16).
+- :func:`train_entry` returns a train step (the losses' OHEM and sampling
+  counts, SGD + AdamW with bf16 state), its state and a batch at the shapes
+  the JAX package times training at; by default the flagship's.
+- ``FULL_FUSED`` and ``CRF_FUSED`` are the flagship's width and depth with
+  the full two-stage head and the CRF head, the encoder's attention epilogue
+  as one fused kernel; both entries take them as ``config``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from vibertgrid_tpu_torch.device import resolve_device
+from vibertgrid_tpu_torch.models.bert import TextEncoderConfig
 from vibertgrid_tpu_torch.models.vibertgrid import Batch, ModelConfig, ViBERTgridNet
 from vibertgrid_tpu_torch.train.optim import make_optimizer
 from vibertgrid_tpu_torch.train.state import create_train_state, make_train_step
@@ -41,6 +45,13 @@ FLAGSHIP_TRAIN = dataclasses.replace(
     num_hard_positive_aux=512,
     num_hard_negative_aux=512,
 )
+# The other two model families on the encoder with the fused attention
+# epilogue, with the training counts above (an inference forward reads none).
+_FUSED_EPILOGUE = dataclasses.replace(TextEncoderConfig.base(), attn_epilogue="fused")
+FULL_FUSED = dataclasses.replace(FLAGSHIP_TRAIN, classifier_mode="full",
+                                 text_config=_FUSED_EPILOGUE)
+CRF_FUSED = dataclasses.replace(FLAGSHIP_TRAIN, classifier_mode="crf",
+                                text_config=_FUSED_EPILOGUE)
 FLAGSHIP_TRAIN_HYP = {
     "optimizer_cnn_hyp": dict(
         learning_rate=0.005, min_learning_rate=1e-6, warm_up_epoches=0,
@@ -85,13 +96,14 @@ def make_batch(b: int, h: int, w: int, t: int, s: int, vocab: int, seed: int = 0
     return Batch(**{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
 
 
-def entry(device="cuda", seed: int = 0):
+def entry(device="cuda", seed: int = 0, config: ModelConfig = FLAGSHIP):
     """``(forward, (model, batch))``: ``forward(model, batch)`` is the
-    flagship's inference ``pred_label`` ``[1, 32, 5]`` on the batch of the
-    JAX package's ``entry()`` (one 256x256 page, 510 tokens, 32 segments)."""
+    inference ``pred_label`` (``[1, 32, 5]`` scores, or ``[1, 32]`` tags from
+    the CRF head) on the batch of the JAX package's ``entry()`` (one 256x256
+    page, 510 tokens, 32 segments)."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
-    model = ViBERTgridNet(FLAGSHIP, device=dev, generator=generator).eval()
+    model = ViBERTgridNet(config, device=dev, generator=generator).eval()
     batch = make_batch(b=1, h=256, w=256, t=510, s=32, vocab=30522, device=dev)
 
     @torch.no_grad()
@@ -103,13 +115,14 @@ def entry(device="cuda", seed: int = 0):
 
 def train_entry(device="cuda", seed: int = 0, config: ModelConfig = FLAGSHIP_TRAIN,
                 hyp: dict = FLAGSHIP_TRAIN_HYP, shape: dict = TRAIN_SHAPE):
-    """``(state, train_step, batch)``: the flagship train step. ``state``
+    """``(state, train_step, batch)``: a train step, the flagship's unless
+    ``config`` names another. ``state``
     holds the model (randomly initialised from ``seed``) and the dual
     optimizer (2 epochs of 100 iterations of schedule, bf16 state);
     ``train_step(state, batch, seeds)`` updates it in place and returns
     ``(state, loss)``; ``batch`` is 16 pages of 512x384 with one 510-token
-    window and 128 segments. ``config``, ``hyp`` and ``shape`` let a test
-    take the same path at a small size."""
+    window and 128 segments. ``hyp`` and ``shape`` let a test take the same
+    path at a small size."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
     model = ViBERTgridNet(config, device=dev, generator=generator)

@@ -2,20 +2,24 @@
 
 On CUDA tensors every layer's attention runs the hand-written attention
 kernels (forward and backward) and its FFN tail the fused FFN kernel; on CPU
-tensors both run their plain twins. The Q/K/V projections and the attention
-out-projection are plain ``F.linear`` products, as the JAX package left them
-to XLA; the attention epilogue is out-projection → dropout → residual →
-LayerNorm.
+tensors both run their plain twins. The Q/K/V projections are plain
+``F.linear`` products, as the JAX package left them to XLA. The attention
+epilogue, out-projection → dropout → residual → LayerNorm, is an ``F.linear``
+and elementwise passes by default and one launch of the fused epilogue kernel
+(``fused_proj_ln``) under ``attn_epilogue="fused"``; both read the same
+parameters and drop the same elements for one seed.
 
 ``deterministic=True`` (evaluation) drops nothing. ``deterministic=False``
 (training) drops the embeddings, the attention probabilities (inside the
-kernel), the attention output and the FFN output (inside the kernel), each
-from its own seed drawn from ``seeds`` in that order. The FFN tail is chosen
-by the gradient path, not by that flag, as the JAX package's
-``ffn_impl="auto"`` chooses it: where autograd records and an input or a
-parameter requires a gradient it is ``fused_ffn_saved``, whose backward needs
-no rematerialisation; elsewhere (under ``torch.no_grad()``) it is the
-residual-free ``fused_ffn``.
+kernel), the attention output (inside the kernel under the fused epilogue)
+and the FFN output (inside the kernel), each from its own seed drawn from
+``seeds`` in that order. Under ``ffn_impl`` ``"auto"`` or ``"fused-saved"``
+the FFN tail is chosen by the gradient path, not by that flag: where autograd
+records and an input or a parameter requires a gradient it is
+``fused_ffn_saved``, whose backward needs no rematerialisation; elsewhere
+(under ``torch.no_grad()``) it is the residual-free ``fused_ffn``.
+``ffn_impl="fused"`` takes ``fused_ffn`` on every path, with its
+rematerialising backward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,11 +31,11 @@ import torch
 from torch import nn
 
 from vibertgrid_tpu_torch.device import resolve_device
-from vibertgrid_tpu_torch.models.layers import dense, embedding, linear
+from vibertgrid_tpu_torch.models.layers import assign, dense, embedding, linear
 from vibertgrid_tpu_torch.models.norm import LayerNorm
 from vibertgrid_tpu_torch.ops.dropout import hash_dropout
 from vibertgrid_tpu_torch.ops.flash_attention import flash_attention
-from vibertgrid_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_saved
+from vibertgrid_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_saved, fused_proj_ln
 
 # name → (hidden size, flavor); the reference's 7-entry bert_model_list
 # plus two tiny test configs.
@@ -62,10 +66,17 @@ class TextEncoderConfig:
     flavor: str = "bert"  # "bert" | "roberta"
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
-    # Kept for YAML compatibility with the JAX package. They select nothing
-    # here: CUDA tensors always take the kernels, CPU tensors the twins.
+    # The JAX package's kernel gates. CUDA tensors always take the kernels and
+    # CPU tensors their twins (the port has no non-kernel path on the card),
+    # so ``attention_impl`` and the value "xla" of the other two select
+    # nothing and are kept for YAML compatibility.
     attention_impl: str = "auto"
+    # "fused": the residual-free FFN kernel on every path, rematerialising
+    # backward. "auto" / "fused-saved": the saved-residual kernel on gradient
+    # paths, the residual-free one elsewhere.
     ffn_impl: str = "auto"
+    # "fused": the attention epilogue as one kernel (fused_proj_ln); any other
+    # value: F.linear, dropout, residual and LayerNorm as separate passes.
     attn_epilogue: str = "auto"
     mesh: Any = None
 
@@ -113,7 +124,10 @@ class SelfAttention(nn.Module):
         for name in ("query", "key", "value", "out"):
             setattr(self, name, linear(d, d, device=device, generator=generator))
 
-    def forward(self, hidden, attn_bias, deterministic: bool = True, seeds=None):
+    def forward(self, hidden, attn_bias, deterministic: bool = True, seeds=None,
+                return_ctx: bool = False):
+        """The out-projected attention output, or with ``return_ctx`` the
+        context before the out-projection (the fused epilogue applies it)."""
         cfg = self.config
         dt = self.dtype
         q = dense(hidden, self.query, dt)
@@ -125,7 +139,7 @@ class SelfAttention(nn.Module):
             q, k, v, attn_bias, 1.0 / float(dh) ** 0.5, cfg.num_heads,
             rate=rate, seed=_draw(seeds, rate),
         )
-        return dense(ctx, self.out, dt)
+        return ctx if return_ctx else dense(ctx, self.out, dt)
 
 
 class EncoderLayer(nn.Module):
@@ -144,30 +158,29 @@ class EncoderLayer(nn.Module):
 
     def forward(self, hidden, attn_bias, deterministic: bool = True, seeds=None):
         b, t, d = hidden.shape
-        dt = self.dtype
         rate = 0.0 if deterministic else self.config.hidden_dropout
-        attn = self.attention(hidden, attn_bias, deterministic, seeds)
-        attn = hash_dropout(attn, _draw(seeds, rate), rate)
-        hidden = self.attention_ln(hidden + attn)
-        x2d = hidden.reshape(b * t, d)
-        ln = (self.output_ln.weight, self.output_ln.bias, self.config.layer_norm_eps)
-        params = (self.intermediate.weight, self.intermediate.bias,
-                  self.output.weight, self.output.bias, *ln[:2])
-        # The residual-free kernel has no backward, so it serves only where no
-        # gradient can be asked: an evaluation forward under autograd takes
-        # the saved-residual kernel at rate 0, as every training forward does.
-        grad_path = torch.is_grad_enabled() and any(t.requires_grad for t in (x2d, *params))
-        if deterministic and not grad_path:
-            out = fused_ffn(
-                x2d, self.intermediate.weight.to(dt), self.intermediate.bias,
-                self.output.weight.to(dt), self.output.bias, *ln,
-            )
-        else:  # takes the fp32 parameters: their gradients leave it in fp32
-            out = fused_ffn_saved(
-                x2d, self.intermediate.weight, self.intermediate.bias,
-                self.output.weight, self.output.bias, *ln,
+        eps = self.config.layer_norm_eps
+        if self.config.attn_epilogue == "fused":
+            ctx = self.attention(hidden, attn_bias, deterministic, seeds, return_ctx=True)
+            x2d = fused_proj_ln(
+                ctx.reshape(b * t, d), hidden.reshape(b * t, d), self.attention.out.weight,
+                self.attention.out.bias, self.attention_ln.weight, self.attention_ln.bias, eps,
                 rate=rate, seed=_draw(seeds, rate),
             )
+        else:
+            attn = self.attention(hidden, attn_bias, deterministic, seeds)
+            attn = hash_dropout(attn, _draw(seeds, rate), rate)
+            x2d = self.attention_ln(hidden + attn).reshape(b * t, d)
+        # both take the fp32 parameters: their gradients leave in fp32
+        params = (self.intermediate.weight, self.intermediate.bias, self.output.weight,
+                  self.output.bias, self.output_ln.weight, self.output_ln.bias)
+        # Unless "fused" forces it, the residual-free kernel serves only where
+        # no gradient can be asked: an evaluation forward under autograd takes
+        # the saved-residual kernel at rate 0, as every training forward does.
+        grad_path = torch.is_grad_enabled() and any(t.requires_grad for t in (x2d, *params))
+        residual_free = self.config.ffn_impl == "fused" or (deterministic and not grad_path)
+        ffn = fused_ffn if residual_free else fused_ffn_saved
+        out = ffn(x2d, *params, eps, rate=rate, seed=_draw(seeds, rate))
         return out.reshape(b, t, d)
 
 
@@ -220,3 +233,45 @@ class TextEncoder(nn.Module):
         for layer in self.layer:
             hidden = layer(hidden, attn_bias, deterministic, seeds)
         return hidden
+
+
+# HuggingFace module name → the encoder's, under ``encoder.layer.{i}`` /
+# ``layer.{i}``; both sides keep the ``nn.Linear`` layout.
+_HF_LAYER = {
+    "attention.self.query": "attention.query",
+    "attention.self.key": "attention.key",
+    "attention.self.value": "attention.value",
+    "attention.output.dense": "attention.out",
+    "attention.output.LayerNorm": "attention_ln",
+    "intermediate.dense": "intermediate",
+    "output.dense": "output",
+    "output.LayerNorm": "output_ln",
+}
+_HF_EMBEDDINGS = {
+    "embeddings.word_embeddings.weight": "word_embeddings.weight",
+    "embeddings.position_embeddings.weight": "position_embeddings.weight",
+    "embeddings.token_type_embeddings.weight": "token_type_embeddings.weight",
+    "embeddings.LayerNorm.weight": "embeddings_ln.weight",
+    "embeddings.LayerNorm.bias": "embeddings_ln.bias",
+}
+
+
+def load_hf_weights(encoder: TextEncoder, state_dict) -> None:
+    """Copy a local HuggingFace ``BertModel`` / ``RobertaModel`` state dict
+    into ``encoder`` in place. Values may be torch tensors or numpy arrays;
+    keys may carry a ``bert.`` / ``roberta.`` prefix. A missing entry raises
+    ``KeyError``, a shape mismatch ``ValueError``."""
+
+    def get(name):
+        for prefix in ("", "bert.", "roberta."):
+            if prefix + name in state_dict:
+                return state_dict[prefix + name]
+        raise KeyError(name)
+
+    names = dict(_HF_EMBEDDINGS)
+    for i in range(encoder.config.num_layers):
+        for theirs, ours in _HF_LAYER.items():
+            for leaf in ("weight", "bias"):
+                names[f"encoder.layer.{i}.{theirs}.{leaf}"] = f"layer.{i}.{ours}.{leaf}"
+    for theirs, ours in names.items():
+        assign(encoder.get_parameter(ours), get(theirs), theirs)

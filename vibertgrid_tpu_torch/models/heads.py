@@ -1,8 +1,17 @@
-"""Late fusion and the simplified field-type head with its losses (port of
+"""Late fusion and the three field-type heads with their losses (port of
 ``vibertgrid_tpu/models/heads.py``).
 
-Heads work on flattened ``[N = B·S]`` segment rows with a validity mask.
-The full two-stage head and the CRF head are not ported yet.
+- :class:`FieldTypeClassification`: the two-stage design, a binary pos/neg
+  gate trained with randomly sampled BCE, then per-class binary classifiers
+  trained with BCE-OHEM on the predicted positives (a validity mask, so the
+  shapes stay static).
+- :class:`SimplifiedFieldTypeClassification`: one multi-class classifier plus
+  an auxiliary 2-way pos/neg classifier, both CE-OHEM.
+- :class:`CRFFieldTypeClassification`: an emission MLP and a linear-chain CRF
+  (:mod:`vibertgrid_tpu_torch.ops.crf`).
+
+The first two work on flattened ``[N = B·S]`` segment rows with a validity
+mask; the CRF head keeps ``[B, S]`` for its sequence model.
 """
 
 from __future__ import annotations
@@ -13,7 +22,8 @@ from torch import nn
 
 from vibertgrid_tpu_torch.models.layers import conv, conv2d, dense, linear
 from vibertgrid_tpu_torch.models.norm import MaskedBatchNorm
-from vibertgrid_tpu_torch.ops.losses import cross_entropy_ohem
+from vibertgrid_tpu_torch.ops import crf
+from vibertgrid_tpu_torch.ops.losses import bce_ohem, bce_random_sample, cross_entropy_ohem
 
 
 class MLPClassifier(nn.Module):
@@ -77,6 +87,60 @@ class LateFusion(nn.Module):
         return dense(fuse, self.fuse, self.dtype)
 
 
+class FieldTypeClassification(nn.Module):
+    """Two-stage head: a pos/neg gate and C−1 per-class binary classifiers.
+
+    ``forward(fuse, segment_classes, valid, compute_loss, seeds)`` →
+    ``(loss, class_pred [N, C])``. Column 0 of ``class_pred`` is the gate's
+    positive probability under ``decision="reference"`` (the reference's
+    rule: the argmax returns background whenever the gate's confidence
+    reaches the class's) and its negative probability under ``"gated"``; the
+    class columns are the class sigmoids where the gate predicts positive
+    and 0 elsewhere. The loss is a randomly sampled BCE on the gate plus, if
+    anything is predicted positive, the sum of the per-class BCE-OHEM losses
+    over the predicted positives. ``seeds``: C ints, one for the gate's
+    random sample and one per class for the OHEM pre-sampling (read only
+    when ``ohem_random``)."""
+
+    def __init__(self, in_f: int, num_classes: int, *, layer_mode: str = "single",
+                 num_hard_positive_1: int = -1, num_hard_negative_1: int = -1,
+                 num_hard_positive_2: int = -1, num_hard_negative_2: int = -1,
+                 ohem_random: bool = False, decision: str = "reference", dtype, device,
+                 generator):
+        super().__init__()
+        self.num_classes = num_classes
+        self.sample_list = [num_hard_negative_1, num_hard_positive_1]  # [neg, pos]
+        self.ohem = dict(num_hard_positive=num_hard_positive_2,
+                         num_hard_negative=num_hard_negative_2, random=ohem_random)
+        self.decision = decision
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.pos_neg_net = MLPClassifier(in_f, 1, layer_mode, **kw)
+        self.category_net = MLPClassifier(in_f, num_classes - 1, layer_mode, **kw)
+
+    def forward(self, fuse_embeddings, segment_classes=None, valid=None, *,
+                compute_loss: bool = False, seeds=None):
+        pos_neg_logit = self.pos_neg_net(fuse_embeddings)[:, 0]
+        class_logits = self.category_net(fuse_embeddings)  # [N, C-1]
+        gate_sig = torch.sigmoid(pos_neg_logit.float())
+        pred_pos = gate_sig >= 0.5
+        col0 = gate_sig if self.decision == "reference" else 1.0 - gate_sig
+        class_sig = torch.where(pred_pos[:, None], torch.sigmoid(class_logits.float()), 0.0)
+        class_pred = torch.cat([col0[:, None], class_sig], dim=1)  # [N, C]
+        if not compute_loss:
+            return None, class_pred
+        if seeds is None:
+            seeds = (0,) * self.num_classes
+        loss1 = bce_random_sample(pos_neg_logit, (segment_classes > 0).float(), valid,
+                                  sample_list=self.sample_list, seed=seeds[0])
+        gated = valid.bool() & pred_pos
+        loss2 = 0.0
+        for ci in range(self.num_classes - 1):
+            loss2 = loss2 + bce_ohem(class_logits[:, ci], (segment_classes == ci + 1).float(),
+                                     gated, seed=seeds[1 + ci], **self.ohem)
+        # with nothing predicted positive the reference skips the class losses
+        return loss1 + gated.any().float() * loss2, class_pred
+
+
 class SimplifiedFieldTypeClassification(nn.Module):
     """Multi-class classifier plus the auxiliary pos/neg classifier.
 
@@ -118,3 +182,31 @@ class SimplifiedFieldTypeClassification(nn.Module):
         loss2 = cross_entropy_ohem(
             class_logits, segment_classes, valid, seed=seeds[1], **self.ohem_2)
         return (loss1 + loss2 if self.add_pos_neg else loss2), class_pred
+
+
+class CRFFieldTypeClassification(nn.Module):
+    """Emission MLP and linear-chain CRF over ``fuse [B, S, D]`` with
+    per-sample ``lengths [B]``; ``num_classes`` excludes START and STOP.
+
+    ``forward(fuse, segment_classes, lengths, train, compute_loss)`` →
+    ``(loss, pred)``: the mean NLL and the emissions ``[B, S, K]`` when
+    ``train and compute_loss``; else the Viterbi tags ``[B, S]`` (int64) and,
+    with ``compute_loss``, the mean path score as the reference's eval mode
+    reports it. It draws no seed."""
+
+    def __init__(self, in_f: int, num_classes: int, *, layer_mode: str = "single", dtype,
+                 device, generator):
+        super().__init__()
+        num_tags = num_classes + 2
+        self.category_net = MLPClassifier(in_f, num_tags, layer_mode, dtype=dtype,
+                                          device=device, generator=generator)
+        self.transitions = nn.Parameter(
+            crf.init_transitions(num_tags, device=device, generator=generator))
+
+    def forward(self, fuse_embeddings, segment_classes=None, lengths=None, *,
+                train: bool = False, compute_loss: bool = False):
+        feats = self.category_net(fuse_embeddings).float()
+        if compute_loss and train:
+            return crf.crf_nll_batch(self.transitions, feats, segment_classes, lengths), feats
+        scores, paths = crf.crf_decode_batch(self.transitions, feats, lengths)
+        return (scores.mean() if compute_loss else None), paths

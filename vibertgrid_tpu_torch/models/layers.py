@@ -62,3 +62,14 @@ def conv(x: torch.Tensor, layer: nn.Conv2d, dtype) -> torch.Tensor:
         x.to(dtype), layer.weight.to(dtype), _cast(layer.bias, dtype),
         layer.stride, layer.padding,
     )
+
+
+def assign(target: torch.Tensor, value, name: str) -> None:
+    """Copy ``value`` (a torch tensor or a numpy array) into the parameter or
+    buffer ``target`` in place; a shape mismatch raises and names the entry."""
+    value = torch.as_tensor(value)
+    if value.shape != target.shape:
+        raise ValueError(
+            f"{name}: checkpoint shape {tuple(value.shape)}, model {tuple(target.shape)}")
+    with torch.no_grad():
+        target.copy_(value)

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vibertgrid_tpu_torch.device import resolve_device
-from vibertgrid_tpu_torch.models.layers import conv, conv2d
+from vibertgrid_tpu_torch.models.layers import assign, conv, conv2d
 from vibertgrid_tpu_torch.models.norm import BatchNorm
 
 # Registry mirroring the reference's model/ViBERTgrid_net.py:282-316.
@@ -141,3 +141,40 @@ class ResNetFPN(nn.Module):
             lo += c
             out = y if out is None else _up(out, 2) + y
         return out.permute(0, 2, 3, 1)  # NHWC
+
+
+def load_torchvision_resnet(backbone: ResNetFPN, state_dict) -> None:
+    """Copy a local torchvision resnet18/34 state dict (torch tensors or numpy
+    arrays) into the backbone's stem and four stages in place: convolutions,
+    BatchNorm parameters and running statistics. The FPN and the fusion layers
+    keep their initialisation. A shape mismatch raises ``ValueError``."""
+
+    def copy_conv(ours: str, theirs: str):
+        assign(backbone.get_parameter(f"{ours}.weight"), state_dict[f"{theirs}.weight"], theirs)
+
+    def copy_bn(ours: str, theirs: str):
+        for leaf in ("weight", "bias"):
+            assign(backbone.get_parameter(f"{ours}.{leaf}"), state_dict[f"{theirs}.{leaf}"],
+                   theirs)
+        for leaf in ("running_mean", "running_var"):
+            assign(backbone.get_buffer(f"{ours}.{leaf}"), state_dict[f"{theirs}.{leaf}"], theirs)
+
+    copy_conv("stem_conv", "conv1")
+    copy_bn("stem_bn", "bn1")
+    for si, (stage, n_blocks) in enumerate(zip(("stage2", "stage3", "stage4", "stage5"),
+                                               backbone.size_list)):
+        for i in range(n_blocks):
+            ours, theirs = f"{stage}_block{i}", f"layer{si + 1}.{i}"
+            copy_conv(f"{ours}.conv1", f"{theirs}.conv1")
+            copy_bn(f"{ours}.bn1", f"{theirs}.bn1")
+            copy_conv(f"{ours}.conv2", f"{theirs}.conv2")
+            copy_bn(f"{ours}.bn2", f"{theirs}.bn2")
+            if f"{theirs}.downsample.0.weight" in state_dict:
+                copy_conv(f"{ours}.shortcut_conv", f"{theirs}.downsample.0")
+                copy_bn(f"{ours}.shortcut_bn", f"{theirs}.downsample.1")
+
+
+def load_pretrained_backbone(model: nn.Module, state_dict) -> None:
+    """:func:`load_torchvision_resnet` into the ``backbone`` of a whole
+    :class:`~vibertgrid_tpu_torch.models.vibertgrid.ViBERTgridNet`."""
+    load_torchvision_resnet(model.backbone, state_dict)

@@ -7,9 +7,9 @@ P_fuse ─ RoIAlign ─ late fusion with segment BERT embeddings ─ field-type 
 
 With ``compute_loss`` the auxiliary segmentation head reads P_fuse too and
 ``total_loss = loss_c + λ·loss_aux``; with ``train`` the encoder drops out
-and the BatchNorms use and update batch statistics. The full and CRF
-field-type heads (and the two-stage segmentation head that goes with the
-full one) are not ported yet (ROADMAP Queue 1 item 11).
+and the BatchNorms use and update batch statistics. ``classifier_mode``
+picks the field-type head: ``"simp"`` (with the simplified segmentation
+head), ``"full"`` or ``"crf"`` (both with the two-stage segmentation head).
 """
 
 from __future__ import annotations
@@ -26,9 +26,17 @@ from vibertgrid_tpu_torch.models.bert import (
     TextEncoder,
     TextEncoderConfig,
 )
-from vibertgrid_tpu_torch.models.heads import LateFusion, SimplifiedFieldTypeClassification
+from vibertgrid_tpu_torch.models.heads import (
+    CRFFieldTypeClassification,
+    FieldTypeClassification,
+    LateFusion,
+    SimplifiedFieldTypeClassification,
+)
 from vibertgrid_tpu_torch.models.resnet_fpn import BACKBONE_REGISTRY, ResNetFPN
-from vibertgrid_tpu_torch.models.seg_head import SimplifiedSemanticSegmentationHead
+from vibertgrid_tpu_torch.models.seg_head import (
+    SemanticSegmentationHead,
+    SimplifiedSemanticSegmentationHead,
+)
 from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter
 from vibertgrid_tpu_torch.ops.roi_align import roi_align
 from vibertgrid_tpu_torch.ops.segments import aggregate_token_embeddings
@@ -58,7 +66,7 @@ class ModelOutput:
     pred_mask: Any             # None at inference
     pred_ss: Any               # None at inference
     gt_label: torch.Tensor     # [B, S]
-    pred_label: torch.Tensor   # [B, S, C] class probabilities
+    pred_label: torch.Tensor   # [B, S, C] class scores, or [B, S] CRF tags
     loss_c: Any = None
     loss_aux: Any = None
 
@@ -174,8 +182,9 @@ class ModelConfig:
 class ViBERTgridNet(nn.Module):
     """See the module docstring. ``forward(batch, train, compute_loss,
     seeds)`` → :class:`ModelOutput` with ``pred_label [B, S, C]`` and, with
-    ``compute_loss``, the losses and the segmentation logits. Parameters are
-    fp32; products run in ``config.compute_dtype``.
+    ``compute_loss``, the losses and the segmentation logits (the CRF head
+    returns tag ids ``[B, S]``, or its emissions ``[B, S, K]`` from a training
+    forward with the loss). Parameters are fp32; products run in ``config.compute_dtype``.
 
     ``seeds`` (an object with ``next() -> int``, see ``train/seeds.py``)
     feeds the dropout sites and the sampled losses in the order that module
@@ -188,11 +197,9 @@ class ViBERTgridNet(nn.Module):
     def __init__(self, config: ModelConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if config.classifier_mode != "simp":
-            raise NotImplementedError(
-                f"classifier_mode {config.classifier_mode!r}: the full and CRF heads "
-                "are not ported yet (ROADMAP Queue 1 item 11)"
-            )
+        mode = config.classifier_mode
+        if mode not in ("simp", "full", "crf"):
+            raise ValueError(f"classifier_mode {mode!r} is not 'simp', 'full' or 'crf'")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -208,22 +215,34 @@ class ViBERTgridNet(nn.Module):
         self.late_fusion = LateFusion(
             256, config.roi_shape, text_cfg.hidden_size, dtype=dt, **kw
         )
-        self.semantic_segmentation_head = SimplifiedSemanticSegmentationHead(
+        seg_cls = (SimplifiedSemanticSegmentationHead if mode == "simp"
+                   else SemanticSegmentationHead)
+        self.semantic_segmentation_head = seg_cls(
             256, config.num_tokens,
             loss_1_sample_list=config.loss_aux_sample_list,
             num_hard_positive=config.num_hard_positive_aux,
             num_hard_negative=config.num_hard_negative_aux,
             loss_weights=config.loss_weights, dtype=dt, **kw,
         )
-        self.field_type_head = SimplifiedFieldTypeClassification(
-            1024, config.num_tokens,
+        if mode == "crf":
+            self.field_type_head = CRFFieldTypeClassification(
+                1024, config.num_tokens, layer_mode=config.layer_mode, dtype=dt, **kw)
+            return
+        ohem = dict(
             num_hard_positive_1=config.num_hard_positive_main_1,
             num_hard_negative_1=config.num_hard_negative_main_1,
             num_hard_positive_2=config.num_hard_positive_main_2,
             num_hard_negative_2=config.num_hard_negative_main_2,
-            ohem_random=config.ohem_random, add_pos_neg=config.add_pos_neg,
-            loss_weights=config.loss_weights, dtype=dt, **kw,
+            ohem_random=config.ohem_random,
         )
+        if mode == "simp":
+            self.field_type_head = SimplifiedFieldTypeClassification(
+                1024, config.num_tokens, add_pos_neg=config.add_pos_neg,
+                loss_weights=config.loss_weights, dtype=dt, **ohem, **kw)
+        else:
+            self.field_type_head = FieldTypeClassification(
+                1024, config.num_tokens, layer_mode=config.layer_mode,
+                decision=config.full_head_decision, dtype=dt, **ohem, **kw)
 
     def forward(self, batch: Batch, *, train: bool = False, compute_loss: bool = False,
                 seeds=None) -> ModelOutput:
@@ -255,12 +274,15 @@ class ViBERTgridNet(nn.Module):
         )  # [B, H/gs, W/gs, D]
         p_fuse = self.backbone(batch.images, grid, train)  # [B, H/4, W/4, 256]
 
+        # Seeds of the sampled losses, in the order train/seeds.py documents:
+        # 2 for the simplified heads, one per class for the two-stage ones.
+        n_seeds = 2 if cfg.classifier_mode == "simp" else cfg.num_tokens
+        draw = lambda: [0 if seeds is None else seeds.next() for _ in range(n_seeds)]
         loss_aux = pred_mask = pred_ss = None
-        draw2 = lambda: (0, 0) if seeds is None else (seeds.next(), seeds.next())
         if compute_loss:
             loss_aux, pred_mask, pred_ss = self.semantic_segmentation_head(
                 p_fuse, batch.seg_classes, batch.boxes, batch.box_mask,
-                train=train, seeds=draw2(),
+                train=train, seeds=draw(),
             )
         rois = roi_align(
             p_fuse, batch.boxes.float(), batch.box_mask,
@@ -271,15 +293,23 @@ class ViBERTgridNet(nn.Module):
         fuse = self.late_fusion(
             rois_flat, seg_emb.reshape(b * s, -1), valid_flat, train
         )  # [B·S, 1024]
-        loss_c, pred = self.field_type_head(
-            fuse, batch.seg_classes.reshape(b * s), valid_flat,
-            compute_loss=compute_loss, seeds=draw2() if compute_loss else (0, 0),
-        )
+        if cfg.classifier_mode == "crf":
+            loss_c, pred_label = self.field_type_head(
+                fuse.reshape(b, s, -1), batch.seg_classes,
+                batch.box_mask.to(torch.int32).sum(dim=1),
+                train=train, compute_loss=compute_loss,
+            )
+        else:
+            loss_c, pred = self.field_type_head(
+                fuse, batch.seg_classes.reshape(b * s), valid_flat,
+                compute_loss=compute_loss, seeds=draw() if compute_loss else None,
+            )
+            pred_label = pred.reshape(b, s, -1)
         total_loss = None
         if compute_loss:
             total_loss = loss_c + cfg.loss_control_lambda * loss_aux
         return ModelOutput(
             total_loss=total_loss, pred_mask=pred_mask, pred_ss=pred_ss,
-            gt_label=batch.seg_classes, pred_label=pred.reshape(b, s, -1),
+            gt_label=batch.seg_classes, pred_label=pred_label,
             loss_c=loss_c, loss_aux=loss_aux,
         )

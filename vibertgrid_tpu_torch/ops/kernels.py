@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vibertgrid_tpu_torch"
 SOURCES = (
-    "flash_attention.cu", "flash_attention_bwd.cu", "fused_ffn.cu",
+    "flash_attention.cu", "flash_attention_bwd.cu", "fused_ffn.cu", "fused_proj_ln.cu",
     "bertgrid_scatter.cu", "bertgrid_scatter_bwd.cu", "errors.cu",
 )
 HEADERS = ("common.cuh",)
@@ -38,7 +38,7 @@ LIB_NAME = "libvibertgrid_kernels.so"
 # Launches per kernel since the last reset_launch_counts().
 LAUNCHES = {
     "flash_attention": 0, "flash_attention_bwd": 0, "fused_ffn": 0, "fused_ffn_saved": 0,
-    "bertgrid_scatter": 0, "bertgrid_scatter_bwd": 0,
+    "fused_proj_ln": 0, "bertgrid_scatter": 0, "bertgrid_scatter_bwd": 0,
 }
 
 _P = ctypes.c_void_p
@@ -55,6 +55,8 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, gamma, beta, out, h1, yhat, rsig, N, D, F, eps, dtype,
     # dropout..., stream
     "vg_fused_ffn": [_P] * 11 + [_I, _I, _I, _F, _I, *_DROPOUT, _P],
+    # ctx, res, w, b, gamma, beta, out, N, D, eps, dtype, dropout..., stream
+    "vg_fused_proj_ln": [_P] * 7 + [_I, _I, _F, _I, *_DROPOUT, _P],
     # emb, boxes, mask, out, B, S, row_bytes, height, width, stride, stream
     "vg_bertgrid_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # d_out, boxes, mask, d_emb, B, S, D, height, width, stride, dtype, stream

@@ -11,11 +11,16 @@ The order of the draws in one training forward of
 :class:`~vibertgrid_tpu_torch.models.vibertgrid.ViBERTgridNet`:
 
 1. the text encoder: the embedding dropout; then for each layer in turn the
-   attention-probability dropout, the attention-output dropout and the FFN
-   dropout (a site whose rate is 0 draws nothing);
-2. the auxiliary segmentation head: the random-sample loss, then the OHEM
-   loss;
-3. the field-type head: the pos/neg OHEM loss, then the class OHEM loss.
+   attention-probability dropout, the attention-output dropout (the fused
+   epilogue draws it where the unfused one does) and the FFN dropout (a site
+   whose rate is 0 draws nothing);
+2. the auxiliary segmentation head. Simplified: the random-sample loss, then
+   the OHEM loss (2 draws). Two-stage, with the full and CRF classifiers:
+   the random-sample loss, then one per class 1..C−1 for the binary OHEM
+   losses (1 + (C−1) draws);
+3. the field-type head. Simplified: the pos/neg OHEM loss, then the class
+   OHEM loss (2 draws). Full: the gate's random-sample loss, then one per
+   class 1..C−1 for the binary OHEM losses (1 + (C−1) draws). CRF: none.
 """
 
 from __future__ import annotations

@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
+    python3 chip_smoke.py --only attention [--tree DIR]   # build, then time kernels 1 and 4
 
 1. builds the hand-written kernels from ``vibertgrid_tpu_torch/csrc``
    (``sm_90a``) into ``build/vibertgrid_tpu_torch/``;
 2. holds each of the seven kernels against its plain PyTorch twin on the card,
    in bf16, at the flagship's shapes and a ragged one (forward outputs, with
-   and without dropout, and gradients), and times kernel, twin and, where one
-   PyTorch call computes the same function, that call;
+   and without dropout, and gradients; attention also at a head width that
+   takes its other tensor-core body, its row statistic, its backward against
+   both plain backwards and twice for equal bits), and times kernel, twin
+   and, where one PyTorch call computes the same function, that call;
 3. drives the flagship inference forward (BERT-base-uncased, ResNet-34-FPN,
    simplified head, bf16; batch 16, 512x384 images, one 510-token window,
    128 segments) through the port's entry points, checks its output and
@@ -36,7 +39,11 @@
 
 ``--only flagship`` is for comparing two trees on one card: run it from each
 tree's root in turns (parent, change, change, parent) in one shell command and
-read the two lines "flagship forward" and "flagship train step".
+read the two lines "flagship forward" and "flagship train step". ``--only
+attention`` does the same for the two attention kernels alone, through the
+package's public ``flash_attention`` only, so ``--tree DIR`` can point this
+script at another checkout's package (an earlier commit unpacked under a
+directory that ``.gitignore`` lists) and time both with one clock.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -49,6 +56,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -113,19 +121,27 @@ CRF_PATH_SCORE_ATOL = 1e-2
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of ``iters`` CUDA-event timings of ``fn()`` after warm-up."""
+    """Device milliseconds of one ``fn()``: the median over groups of
+    back-to-back calls between one pair of CUDA events. Before each group the
+    card is kept busy by a spin kernel so that the host runs ahead and queues
+    the group's launches: the events then time the card's work, not the
+    host's dispatch (a backward through autograd costs the host 0.2-0.3 ms a
+    call, more than the short kernels take)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    groups, per_group = (5, iters // 5) if iters >= 10 else (iters, 1)
     times = []
-    for _ in range(iters):
+    for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000 * per_group)  # ~2 ms of spinning for each queued call
         start.record()
-        fn()
+        for _ in range(per_group):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per_group)
     return statistics.median(times)
 
 
@@ -167,22 +183,38 @@ def _record(name, source, replaces, **kw):
                 replaces=f"vibertgrid_tpu/ops/{replaces}", **kw)
 
 
+# (batch, T, heads, head width): a ragged T (not a multiple of the 64-row tile,
+# two valid rows in the last) with padded keys on the wgmma bodies; the same on
+# the WMMA bodies that head widths 32 and 128 take; then the flagship's.
+ATTN_SHAPES = ((2, 130, 12, 64), (2, 130, 4, 32), (B, T + 2, 12, 64))
+LSE_ATOL = 1e-4  # fp32 max + log(sum) of scores of order 1-10, summed in another order
+
+
 def check_attention(dev):
-    from vibertgrid_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+    from vibertgrid_tpu_torch.ops.flash_attention import (
+        attention_forward,
+        attention_reference,
+        flash_attention,
+    )
 
     g = torch.Generator(device=dev).manual_seed(1)
-    nh, dh = 12, 64
-    # A ragged T (not a multiple of the 64-key tile) with padded keys, then
-    # the flagship's; each without and with dropout of the probabilities.
+    # each shape without and with dropout of the probabilities
     with torch.no_grad():
-        for b, t in ((2, 130), (B, T + 2)):
+        for b, t, nh, dh in ATTN_SHAPES:
             q, k, v, valid, bias = _attention_inputs(dev, b, t, nh, dh, g)
             for rate in (DROP_RATE, 0.0):
                 args = (q, k, v, bias, dh ** -0.5, nh)
                 got = flash_attention(*args, rate=rate, seed=DROP_SEED)
-                want = attention_reference(*args, seed=DROP_SEED, rate=rate)
+                # the forward of a gradient path: the same output bit for bit, and lse
+                got_grad, lse = attention_forward(*args, DROP_SEED, rate, True)
+                want, want_lse = attention_reference(*args, seed=DROP_SEED, rate=rate,
+                                                     return_lse=True)
                 torch.cuda.synchronize()
-                _assert_close(f"attention T={t} rate={rate}", got, want, **ATTN_TOL)
+                what = f"attention T={t} D={dh} rate={rate}"
+                _assert_close(what, got, want, **ATTN_TOL)
+                _assert_close(f"{what} lse", lse, want_lse, atol=LSE_ATOL, rtol=0.0)
+                if not torch.equal(got, got_grad):
+                    raise AssertionError(f"{what}: the output changes when lse is asked for")
         err = _max_err(got, want)
         qh, kh, vh = (x.view(b, t, nh, dh).transpose(1, 2) for x in (q, k, v))
         mask = valid[:, None, None, :]
@@ -191,9 +223,11 @@ def check_attention(dev):
                       atol=4 * 2 ** -6, rtol=4 * 2 ** -6)
         ms = _time_ms(lambda: flash_attention(*args))
         drop_ms = _time_ms(lambda: flash_attention(*args, rate=DROP_RATE, seed=DROP_SEED))
+        lse_ms = _time_ms(lambda: attention_forward(*args, DROP_SEED, DROP_RATE, True))
         plain_ms = _time_ms(lambda: attention_reference(*args))
         library_ms = _time_ms(sdpa)
-    print(f"flash_attention with dropout {DROP_RATE}: {drop_ms:.3f} ms (without: {ms:.3f} ms)")
+    print(f"flash_attention with dropout {DROP_RATE}: {drop_ms:.3f} ms, with dropout and lse: "
+          f"{lse_ms:.3f} ms (without either: {ms:.3f} ms); sdpa {library_ms:.3f} ms")
     bound_ms, bound_by = _bound(4 * b * nh * t * t * dh, 4 * q.numel() * 2 + bias.numel() * 4)
     return _record("flash_attention", "flash_attention.cu", "flash_attention.py:99",
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -229,33 +263,50 @@ def _check_attention_fma(dev, g):
 
 def check_attention_bwd(dev):
     from vibertgrid_tpu_torch.ops.flash_attention import (
+        attention_backward_from_stats,
         attention_backward_reference,
+        attention_reference,
         flash_attention,
     )
 
     g = torch.Generator(device=dev).manual_seed(6)
-    nh, dh = 12, 64
     names = ("dq", "dk", "dv", "d_bias")
-    for b, t in ((2, 130), (B, T + 2)):
+    for b, t, nh, dh in ATTN_SHAPES:
         q, k, v, valid, bias = _attention_inputs(dev, b, t, nh, dh, g)
         d_out = torch.randn(b, t, nh * dh, generator=g, device=dev).bfloat16()
         for rate in (DROP_RATE, 0.0):
             leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
             out = flash_attention(*leaves, dh ** -0.5, nh, rate=rate, seed=DROP_SEED)
-            got = torch.autograd.grad(out, leaves, d_out)
+            got = torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+            again = torch.autograd.grad(out, leaves, d_out)
+            # the statement of what the TPU kernel computes, and the kernel's own
+            # arithmetic from the twin's lse
             want = attention_backward_reference(q, k, v, bias, d_out, dh ** -0.5, nh,
                                                 DROP_SEED, rate)
+            lse = attention_reference(q, k, v, bias, dh ** -0.5, nh, DROP_SEED, rate,
+                                      return_lse=True)[1]
+            want_stats = attention_backward_from_stats(q, k, v, bias, d_out, None, lse,
+                                                       dh ** -0.5, nh, DROP_SEED, rate)
             torch.cuda.synchronize()
-            for name, a, w in zip(names, got, want):
+            what = f"T={t} D={dh} rate={rate}"
+            for name, a, a2, w, ws in zip(names, got, again, want, want_stats):
                 tol = ATTN_BIAS_TOL if name == "d_bias" else ATTN_BWD_TOL
-                _assert_close(f"attention backward {name} T={t} rate={rate}", a, w, **tol,
-                              show=True)
+                _assert_close(f"attention backward {name} {what}", a, w, **tol, show=True)
+                _assert_close(f"attention backward {name} {what} vs from-stats twin", a, ws,
+                              **tol)
+                if not torch.equal(a, a2):  # no atomics: the same bits every run
+                    raise AssertionError(f"attention backward {name} {what}: two runs differ")
     err = max(_max_err(a, w) for a, w in zip(got[:3], want[:3]))
     _check_attention_fma(dev, g)
 
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    out = flash_attention(*leaves, bias, dh ** -0.5, nh, rate=DROP_RATE, seed=DROP_SEED)
-    ms = _time_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
+    def timed(rate):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*leaves, bias, dh ** -0.5, nh, rate=rate, seed=DROP_SEED)
+        return _time_ms(lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True))
+
+    ms, no_drop_ms = timed(DROP_RATE), timed(0.0)
+    print(f"flash_attention_bwd with dropout {DROP_RATE}: {ms:.3f} ms "
+          f"(without: {no_drop_ms:.3f} ms)")
     with torch.no_grad():
         plain_ms = _time_ms(lambda: attention_backward_reference(
             q, k, v, bias, d_out, dh ** -0.5, nh, DROP_SEED, DROP_RATE), iters=5)
@@ -570,7 +621,9 @@ def _device_time_table(fn, wall_s, what):
 
 def _timed_forward(model, batch, what, iters: int = 10) -> float:
     """Seconds per batch: the host clock around ``iters`` inference forwards
-    that end in a synchronize, after one warm forward."""
+    that end in a synchronize, after one warm forward. Also prints how long
+    the host took to issue them: where that is the whole time, the host and
+    not the card bounds the forward."""
     with torch.no_grad():
         model(batch)
         torch.cuda.synchronize()
@@ -578,10 +631,11 @@ def _timed_forward(model, batch, what, iters: int = 10) -> float:
         t0 = time.perf_counter()
         for _ in range(iters):
             model(batch)
+        issued = (time.perf_counter() - t0) / iters
         torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / iters
     print(f"{what} bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/batch, "
-          f"{B / dt:.1f} docs/s, peak memory "
+          f"{B / dt:.1f} docs/s (the host issued a batch in {issued * 1e3:.2f} ms), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dt
 
@@ -893,14 +947,64 @@ def fp32_train_card_vs_host(dev, config, what, names):
             raise AssertionError(f"fp32 train step ({what}): gradient of {name} differs by {err}")
 
 
+def attention_times(dev, tree):
+    """Device time of the attention forward and backward at the flagship
+    shape, with and without dropout, beside the twin's and the library
+    call's, through ``flash_attention`` and autograd alone."""
+    from vibertgrid_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+
+    nh, dh = 12, 64
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, valid, bias = _attention_inputs(dev, B, T + 2, nh, dh, g)
+    d_out = torch.randn(B, T + 2, nh * dh, generator=g, device=dev).bfloat16()
+    args = (q, k, v, bias, dh ** -0.5, nh)
+    heads = [x.view(B, T + 2, nh, dh).transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    mask = valid[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(*heads, attn_mask=mask)
+
+    def backward_ms(rate):
+        """Device ms of one backward, and of each of its kernels by name."""
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*leaves, bias, dh ** -0.5, nh, rate=rate, seed=DROP_SEED)
+        run = lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+        ms = _time_ms(run)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                run()
+            torch.cuda.synchronize()
+        parts = ", ".join(
+            f"{re.search(r'attention_bwd_[a-z]+', e.key).group()} "
+            f"{e.self_device_time_total / e.count / 1e3:.4f}"
+            for e in prof.key_averages() if "attention_bwd_" in e.key)
+        return f"{ms:.4f} ({parts})"
+
+    with torch.no_grad():
+        fwd = _time_ms(lambda: flash_attention(*args))
+        fwd_drop = _time_ms(lambda: flash_attention(*args, rate=DROP_RATE, seed=DROP_SEED))
+        twin = _time_ms(lambda: attention_reference(*args))
+        lib = _time_ms(sdpa)
+    bwd, bwd_drop = backward_ms(0.0), backward_ms(DROP_RATE)
+    sdpa_out = sdpa()
+    d_heads = d_out.view(B, T + 2, nh, dh).transpose(1, 2)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(sdpa_out, heads, d_heads, retain_graph=True))
+    print(f"attention kernels of {tree}, B={B} H={nh} T={T + 2} D={dh} bf16, device ms: "
+          f"forward {fwd:.4f}, with dropout {DROP_RATE} {fwd_drop:.4f}, twin {twin:.4f}, "
+          f"sdpa {lib:.4f}; backward {bwd}, with dropout {bwd_drop}, "
+          f"sdpa backward {lib_bwd:.4f}")
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--only", "flagship"]):
-        print("usage: python3 chip_smoke.py [--only flagship]", file=sys.stderr)
+    tree = HERE
+    if len(argv) == 4 and argv[:2] == ["--only", "attention"] and argv[2] == "--tree":
+        tree, argv = os.path.abspath(argv[3]), argv[:2]
+    if argv not in ([], ["--only", "flagship"], ["--only", "attention"]):
+        print("usage: python3 chip_smoke.py [--only flagship | --only attention [--tree DIR]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, tree)
     from vibertgrid_tpu_torch.ops import kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -914,9 +1018,18 @@ def main(argv) -> int:
     kernels.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    if argv == ["--only", "attention"]:  # kernels 1 and 4 alone, for comparing trees
+        attention_times(dev, tree)
+        print(smi)
+        return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees
         flagship_forward(dev, [])
         flagship_train(dev, [])
+        print(smi)
         return 0
     from vibertgrid_tpu_torch.entry import FLAGSHIP, FLAGSHIP_TRAIN, FULL_FUSED
 
@@ -937,10 +1050,6 @@ def main(argv) -> int:
          "semantic_segmentation_head.binary_bank.weight"))
     fp32_crf_decode_card_vs_host(dev)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

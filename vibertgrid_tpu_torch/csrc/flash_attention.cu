@@ -23,15 +23,21 @@
 // the TPU kernel's -1e9 padding gives) and query rows past T are not
 // stored, so any T <= 512 works without the caller padding.
 //
-// Two bodies share that plan. bf16 with D a multiple of 16 (the flagship)
-// runs both products on the tensor cores as 16x16x16 mma (WMMA) with K/V
-// tiles double-buffered by cp.async (namespace tc below). Every other case
-// (the fp32 forward) runs fp32 FMAs on the CUDA cores: the next section.
-// Neither uses wgmma or TMA yet.
+// Three bodies. bf16 with D = 64 (BERT-base, RoBERTa-base: every full-width
+// configuration) runs on wgmma with an online softmax: namespace hopper at
+// the end of this file, which has its own note. bf16 with D = 32 or 128 keeps
+// the plan above on 16x16x16 mma (WMMA) with K/V tiles double-buffered by
+// cp.async (namespace tc). Every other case (fp32, odd widths) runs fp32 FMAs
+// on the CUDA cores: the next section.
+//
+// When the caller will take a gradient it passes `lse` and every body also
+// writes lse[b, h, row] = max + log(sum) of the row's biased scores, from
+// which the backward kernel rebuilds the probabilities.
 
 #include <mma.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -57,8 +63,8 @@ template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, int T_len, int H, int D, int Tp, float scale,
-                 vg::Dropout drop) {
+                 T* __restrict__ out, float* __restrict__ lse, int T_len, int H, int D, int Tp,
+                 float scale, vg::Dropout drop) {
   extern __shared__ float smem[];
   const int ld = D + 1;  // odd stride: lanes reading different rows hit different banks
   float* Qs = smem;             // [kBQ][ld]
@@ -119,6 +125,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l += e;
     }
     l = vg::warp_sum(l);
+    if (lse != nullptr && lane == 0 && q0 + row0 + i < T_len)
+      lse[(size_t)(b * H + h) * T_len + q0 + row0 + i] = m + logf(l);
     const uint32_t drop_row = (uint32_t)(q0 + row0 + i) * drop_ld;
     for (int c = lane; c < Tp; c += 32) {
       float p = row[c] / l;
@@ -162,7 +170,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DJ>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
-                   void* out, int B, int T_len, int H, int D, float scale,
+                   void* out, float* lse, int B, int T_len, int H, int D, float scale,
                    vg::Dropout drop, cudaStream_t stream) {
   const int Tp = (T_len + kBK - 1) / kBK * kBK;
   const size_t smem = ((size_t)(kBQ + kBK) * (D + 1) + (size_t)kBQ * Tp) * sizeof(float);
@@ -172,22 +180,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
   attention_kernel<T, DJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<T*>(out), T_len, H, D, Tp, scale, drop);
+      static_cast<T*>(out), lse, T_len, H, D, Tp, scale, drop);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const float* bias,
-                     void* out, int B, int T_len, int H, int D, float scale,
+                     void* out, float* lse, int B, int T_len, int H, int D, float scale,
                      vg::Dropout drop, cudaStream_t stream) {
-  if (D <= 32) return launch<T, 1>(q, k, v, bias, out, B, T_len, H, D, scale, drop, stream);
-  if (D <= 64) return launch<T, 2>(q, k, v, bias, out, B, T_len, H, D, scale, drop, stream);
-  if (D <= 128) return launch<T, 4>(q, k, v, bias, out, B, T_len, H, D, scale, drop, stream);
+  if (D <= 32) return launch<T, 1>(q, k, v, bias, out, lse, B, T_len, H, D, scale, drop, stream);
+  if (D <= 64) return launch<T, 2>(q, k, v, bias, out, lse, B, T_len, H, D, scale, drop, stream);
+  if (D <= 128) return launch<T, 4>(q, k, v, bias, out, lse, B, T_len, H, D, scale, drop, stream);
   return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (D a multiple of 16): 16x16x16 bf16 mma (WMMA)
+// bf16 with D = 32 or 128 on the tensor cores: 16x16x16 bf16 mma (WMMA)
 // with fp32 accumulation, 32 query rows a block so that two blocks share an
 // SM. The walk is one sequence of stages, the K tiles then the V tiles,
 // double-buffered with cp.async so tile s+1 loads while tile s computes.
@@ -238,8 +246,8 @@ template <int D, bool DROP>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
-                 bf16* __restrict__ out, int T_len, int H, int Tp, float scale,
-                 vg::Dropout drop) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int T_len, int H, int Tp,
+                 float scale, vg::Dropout drop) {
   using L = Smem<D>;
   constexpr int kLd = L::kLd, kLdO = L::kLdO;
   constexpr int DF = D / 16;                 // output fragments per row block
@@ -322,6 +330,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             }
           }
           l = vg::warp_sum(l);
+          if (lse != nullptr && lane == 0 && q0 + warp * 4 + i < T_len)
+            lse[(size_t)(b * H + h) * T_len + q0 + warp * 4 + i] = m + logf(l);
           __syncwarp();
           bf16* prow = reinterpret_cast<bf16*>(row);
           const uint32_t drop_row = (uint32_t)(q0 + warp * 4 + i) * drop_ld;
@@ -370,7 +380,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out,
-                   int B, int T_len, int H, float scale, vg::Dropout drop, cudaStream_t stream) {
+                   float* lse, int B, int T_len, int H, float scale, vg::Dropout drop,
+                   cudaStream_t stream) {
   const int Tp = (T_len + kBK - 1) / kBK * kBK;
   const int smem = Smem<D>::bytes(Tp);
   cudaError_t err = cudaFuncSetAttribute(
@@ -379,28 +390,208 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   dim3 grid((T_len + kRows - 1) / kRows, H, B);
   attention_kernel<D, DROP><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, static_cast<bf16*>(out), T_len, H, Tp, scale, drop);
+      bias, static_cast<bf16*>(out), lse, T_len, H, Tp, scale, drop);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out,
-                   int B, int T_len, int H, float scale, vg::Dropout drop, cudaStream_t stream) {
-  return drop.on ? launch<D, true>(q, k, v, bias, out, B, T_len, H, scale, drop, stream)
-                 : launch<D, false>(q, k, v, bias, out, B, T_len, H, scale, drop, stream);
+                   float* lse, int B, int T_len, int H, float scale, vg::Dropout drop,
+                   cudaStream_t stream) {
+  return drop.on ? launch<D, true>(q, k, v, bias, out, lse, B, T_len, H, scale, drop, stream)
+                 : launch<D, false>(q, k, v, bias, out, lse, B, T_len, H, scale, drop, stream);
 }
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// bf16, D = 64, on wgmma (the flagship's body).
+//
+// What limited the WMMA body at this shape: 32 query rows a block, four
+// 16x16x16 mma a warp between two block barriers per key tile, and the scores
+// and probabilities making a round trip through 65 KB of shared memory as
+// fp32 (3.5% of the tensor peak). Bound: 12.9 GFLOP at B=16, H=12, T=512 is
+// 13 us at 989 TFLOP/s; 50 MB of q, k, v, out is 15 us at 3.35 TB/s.
+//
+// Design: one warpgroup (128 threads) a block owns 64 query rows of one
+// head. Q and, in a two-stage cp.async ring, 64-key K and V tiles live in
+// shared memory in the 128-byte-swizzled layout (wgmma.cuh). Per key tile:
+// S = Q K^T by four wgmma m64n64k16 straight into registers; scale, bias and
+// an online softmax (running row max m and sum l, both in the exp2 domain) in
+// registers; dropout by the stateless hash of the element's (row, col); the
+// probabilities rounded to bf16 in registers, where the accumulator's layout
+// is the A operand's; O += P V by four more wgmma with V read MN-major from
+// the same row-major tile. O stays in registers until the end, is scaled by
+// keep_scale / l, and leaves through the Q tile's shared memory as whole
+// 128-byte rows. One block barrier a key tile; no score, probability or
+// output sum ever touches shared memory. The probabilities are rounded
+// before the division by l (the twin rounds after): within the check's two
+// bf16 ulps. lse = (m + log2 l) ln 2 is written when asked for.
+//
+// Resources (ptxas -v, kept in the build's flash_attention.cu.log; no
+// spills): 43 KB of dynamic shared memory (Q 8 KB, 2 x (K + V) 32 KB, bias
+// 2 KB, 1 KB to align) and 114 registers a thread (128 with dropout), so four
+// blocks share an SM and one block's softmax overlaps another's products; the
+// grid at the flagship is 8 x 12 x 16 = 1536 blocks, 2.9 waves of 4 x 132.
+// Measured there (H100, 700 W): 0.052 ms, 250 TFLOP/s, 0.077 ms with dropout
+// (twelve integer operations an element for the hash). Two or four
+// warpgroups a block sharing the K and V tiles were no faster: the loads are
+// not the limit, the serial chain products - softmax - products inside a
+// warpgroup is.
+
+namespace hopper {
+
+using bf16 = __nv_bfloat16;
+using namespace vg::gmma;
+constexpr int kWgThreads = 128;
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+constexpr int kSmemBytes = 1024 + kTileBytes * (1 + 2 * kStages) + 512 * 4;
+
+template <bool DROP>
+__global__ void __launch_bounds__(kWgThreads, 4)
+attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ bias,
+                 bf16* __restrict__ out, float* __restrict__ lse, int T_len, int H, float scale,
+                 vg::Dropout drop) {
+  extern __shared__ unsigned char smem_hopper[];
+  unsigned char* Qs = align1024(smem_hopper);
+  unsigned char* KVs = Qs + kTileBytes;  // [stage][K tile, V tile]
+  float* bias2 = reinterpret_cast<float*>(KVs + 2 * kStages * kTileBytes);  // bias * log2(e)
+
+  const int q0 = blockIdx.x * kTileRows, h = blockIdx.y, b = blockIdx.z;
+  const int HD = H * 64;
+  const size_t head = (size_t)b * T_len * HD + (size_t)h * 64;
+  const bf16* kh = k + head;
+  const bf16* vh = v + head;
+  const int n_tiles = (T_len + kTileRows - 1) / kTileRows;
+  const int lane = threadIdx.x & 31, quad = lane & 3;
+  // this thread's rows: row0, row0 + 8
+  const int row0 = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  drop.seed += (uint32_t)(b * H + h);
+  const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
+
+  auto prefetch = [&](int it) {
+    unsigned char* stage = KVs + (it % kStages) * 2 * kTileBytes;
+    load_swizzled<kWgThreads>(stage, kh, it * kTileRows, T_len, HD);
+    load_swizzled<kWgThreads>(stage + kTileBytes, vh, it * kTileRows, T_len, HD);
+  };
+  load_swizzled<kWgThreads>(Qs, q + head, q0, T_len, HD);
+  prefetch(0);
+  vg::cp_async_commit();
+  for (int i = threadIdx.x; i < n_tiles * kTileRows; i += kWgThreads)
+    bias2[i] = (i < T_len ? bias[(size_t)b * T_len + i] : kMaskBias) * kLog2e;
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};  // -inf
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  const float c = scale * kLog2e;
+  const uint64_t desc_q = descriptor(Qs);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    vg::cp_async_wait<0>();
+    fence_async_proxy();
+    __syncthreads();  // tile `it` has landed; every warp is done with tile it - 1
+    if (it + 1 < n_tiles) prefetch(it + 1);
+    vg::cp_async_commit();
+    const unsigned char* Ks = KVs + (it % kStages) * 2 * kTileBytes;
+
+    float s[32];
+    mma_fence();
+    product_ss(s, desc_q, descriptor(Ks));
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(s);
+
+    // x = s * scale + bias in the exp2 domain; running max
+    const float* bt = bias2 + it * kTileRows + 2 * quad;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * j);
+      s[4 * j + 0] = fmaf(s[4 * j + 0], c, bb.x);
+      s[4 * j + 1] = fmaf(s[4 * j + 1], c, bb.y);
+      s[4 * j + 2] = fmaf(s[4 * j + 2], c, bb.x);
+      s[4 * j + 3] = fmaf(s[4 * j + 3], c, bb.y);
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j + 0], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = quad_max(mx[hh]);
+      alpha[hh] = exp2_approx(m[hh] - mx[hh]);  // 0 on the first tile
+      m[hh] = mx[hh];
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      float p = exp2_approx(s[i] - m[hh]);
+      sum[hh] += p;
+      if (DROP) {
+        const uint32_t col = (uint32_t)(it * kTileRows + 8 * (i >> 2) + 2 * quad + (i & 1));
+        if (!drop.keep((uint32_t)(row0 + 8 * hh) * drop_ld + col)) p = 0.f;
+      }
+      s[i] = p;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + sum[hh];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t a[4][4];
+    to_operand(a, s);
+    mma_fence();
+    product_rs_acc(o, a, descriptor(Ks + kTileBytes));
+    mma_commit();
+    mma_wait<0>();
+    fence_regs(o);
+  }
+
+  float factor[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] = quad_sum(l[hh]);
+    factor[hh] = drop.scale / l[hh];
+    const int row = row0 + 8 * hh;
+    if (lse != nullptr && quad == 0 && row < T_len)
+      lse[(size_t)(b * H + h) * T_len + row] = (m[hh] + log2f(l[hh])) * kLn2;
+  }
+  __syncthreads();  // every warp's products have read the Q tile
+  store_tile(Qs, o, factor, out + head, q0, T_len, HD);
+}
+
+template <bool DROP>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out,
+                   float* lse, int B, int T_len, int H, float scale, vg::Dropout drop,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_len + kTileRows - 1) / kTileRows, H, B);
+  attention_kernel<DROP><<<grid, kWgThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, static_cast<bf16*>(out), lse, T_len, H, scale, drop);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, const float* bias,
-                          void* out, int B, int T_len, int H, int D, float scale,
+                          void* out, float* lse, int B, int T_len, int H, int D, float scale,
                           vg::Dropout drop, cudaStream_t st) {
   switch (D) {
-    case 32: return tc::launch<32>(q, k, v, bias, out, B, T_len, H, scale, drop, st);
-    case 64: return tc::launch<64>(q, k, v, bias, out, B, T_len, H, scale, drop, st);
-    case 128: return tc::launch<128>(q, k, v, bias, out, B, T_len, H, scale, drop, st);
+    case 32: return tc::launch<32>(q, k, v, bias, out, lse, B, T_len, H, scale, drop, st);
+    case 64:
+      return drop.on
+                 ? hopper::launch<true>(q, k, v, bias, out, lse, B, T_len, H, scale, drop, st)
+                 : hopper::launch<false>(q, k, v, bias, out, lse, B, T_len, H, scale, drop, st);
+    case 128: return tc::launch<128>(q, k, v, bias, out, lse, B, T_len, H, scale, drop, st);
     default:
-      return dispatch<__nv_bfloat16>(q, k, v, bias, out, B, T_len, H, D, scale, drop, st);
+      return dispatch<__nv_bfloat16>(q, k, v, bias, out, lse, B, T_len, H, D, scale, drop, st);
   }
 }
 
@@ -412,15 +603,18 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, const flo
 // where splitmix32(row * round_up(T, 128) + col, seed + b * H + h) >=
 // threshold, and kept values are scaled by keep_scale = 1 / (1 - rate),
 // after the normalisation and before p is rounded to the storage dtype.
+// lse: [B, H, T] fp32, written with max + log(sum) of each row's biased
+// scores, or null when no gradient will be taken.
 extern "C" int vg_flash_attention(const void* q, const void* k, const void* v,
-                                  const void* bias, void* out, int B, int T_len, int H,
-                                  int D, float scale, int dtype, int dropout, int seed,
+                                  const void* bias, void* out, void* lse, int B, int T_len,
+                                  int H, int D, float scale, int dtype, int dropout, int seed,
                                   unsigned threshold, float keep_scale, void* stream) {
   if (T_len < 1 || T_len > 512) return cudaErrorInvalidValue;
   const float* bs = static_cast<const float*>(bias);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const vg::Dropout drop{dropout, (uint32_t)seed, threshold, keep_scale};
-  if (dtype == 0) return dispatch<float>(q, k, v, bs, out, B, T_len, H, D, scale, drop, st);
-  if (dtype == 1) return dispatch_bf16(q, k, v, bs, out, B, T_len, H, D, scale, drop, st);
+  if (dtype == 0) return dispatch<float>(q, k, v, bs, out, ls, B, T_len, H, D, scale, drop, st);
+  if (dtype == 1) return dispatch_bf16(q, k, v, bs, out, ls, B, T_len, H, D, scale, drop, st);
   return cudaErrorInvalidValue;
 }

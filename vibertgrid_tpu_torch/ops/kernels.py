@@ -30,7 +30,7 @@ SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "fused_ffn.cu", "fused_proj_ln.cu",
     "bertgrid_scatter.cu", "bertgrid_scatter_bwd.cu", "errors.cu",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "wgmma.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libvibertgrid_kernels.so"
@@ -47,11 +47,11 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _DROPOUT = [_I, _I, _U, _F]  # on, seed, threshold, scale: see dropout_args()
 _SIGNATURES = {
-    # q, k, v, bias, out, B, T, H, D, scale, dtype, dropout..., stream
-    "vg_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, *_DROPOUT, _P],
-    # q, k, v, bias, d_out, dq, dk, dv, d_bias_part, stats, B, T, H, D, scale, dtype,
+    # q, k, v, bias, out, lse, B, T, H, D, scale, dtype, dropout..., stream
+    "vg_flash_attention": [_P] * 6 + [_I, _I, _I, _I, _F, _I, *_DROPOUT, _P],
+    # q, k, v, bias, d_out, lse, dq, dk, dv, d_bias_part, delta, B, T, H, D, scale, dtype,
     # dropout..., stream
-    "vg_flash_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, *_DROPOUT, _P],
+    "vg_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, *_DROPOUT, _P],
     # x, w1, b1, w2, b2, gamma, beta, out, h1, yhat, rsig, N, D, F, eps, dtype,
     # dropout..., stream
     "vg_fused_ffn": [_P] * 11 + [_I, _I, _I, _F, _I, *_DROPOUT, _P],

@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
     python3 chip_smoke.py --only attention [--tree DIR]   # build, then time kernels 1 and 4
+    python3 chip_smoke.py --only ffn [--tree DIR]         # build, then time kernels 2 and 5
 
 1. builds the hand-written kernels from ``vibertgrid_tpu_torch/csrc``
    (``sm_90a``) into ``build/vibertgrid_tpu_torch/``;
@@ -10,8 +11,11 @@
    in bf16, at the flagship's shapes and a ragged one (forward outputs, with
    and without dropout, and gradients; attention also at a head width that
    takes its other tensor-core body, its row statistic, its backward against
-   both plain backwards and twice for equal bits), and times kernel, twin
-   and, where one PyTorch call computes the same function, that call;
+   both plain backwards and twice for equal bits; the FFN's two launches each
+   against its own twin and twice for equal bits, and its FMA body in bf16
+   at widths 64 and 256), and times kernel, twin and, where one PyTorch call computes the same
+   function, that call (for the FFN, which no single call computes, the
+   chain of library calls);
 3. drives the flagship inference forward (BERT-base-uncased, ResNet-34-FPN,
    simplified head, bf16; batch 16, 512x384 images, one 510-token window,
    128 segments) through the port's entry points, checks its output and
@@ -43,7 +47,9 @@ read the two lines "flagship forward" and "flagship train step". ``--only
 attention`` does the same for the two attention kernels alone, through the
 package's public ``flash_attention`` only, so ``--tree DIR`` can point this
 script at another checkout's package (an earlier commit unpacked under a
-directory that ``.gitignore`` lists) and time both with one clock.
+directory that ``.gitignore`` lists) and time both with one clock; ``--only
+ffn`` does it for the two FFN kernels through ``fused_ffn`` and
+``fused_ffn_saved``.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -334,6 +340,48 @@ def _ffn_params(dev, g, d=768, f=3072, dt=torch.bfloat16):
     return tuple(p.to(dt) if p.ndim == 2 else p for p in _ffn_masters(dev, g, d, f))
 
 
+def _check_ffn_launches(x, params, rate, saved, what):
+    """The wgmma body's two launches, each against its twin on the same
+    inputs: the up-projection's ``h`` (and ``h1``) against ``ffn_up_reference``,
+    the down-projection's outputs against ``ffn_down_ln_reference`` given the
+    kernel's own ``h``; then a second call, which must give the same bits."""
+    from vibertgrid_tpu_torch.ops import fused_ffn as ffn
+
+    n, f = x.shape[0], params[0].shape[0]
+    runs = []
+    for _ in range(2):
+        h = torch.empty(n, f, dtype=x.dtype, device=x.device)
+        runs.append((h, *ffn._launch(x, *params, 1e-12, DROP_SEED, rate, saved=saved, h=h)))
+    torch.cuda.synchronize()
+    h, y, h1, yhat, rsig = runs[0]
+    want_h, want_h1 = ffn.ffn_up_reference(x, *params[:2])
+    want_y, want_yhat, want_rsig = ffn.ffn_down_ln_reference(h, x, *params[2:], 1e-12, DROP_SEED,
+                                                             rate)
+    _assert_close(f"{what} up-projection h", h, want_h, **FFN_TOL)
+    _assert_close(f"{what} down-projection y", y, want_y, **FFN_TOL)
+    if saved:
+        _assert_close(f"{what} up-projection h1", h1, want_h1, **FFN_TOL)
+        _assert_close(f"{what} down-projection yhat", yhat, want_yhat, **FFN_TOL)
+        _assert_close(f"{what} down-projection rsig", rsig, want_rsig, **RSIG_TOL)
+    for name, a, b in zip(("h", "y", "h1", "yhat", "rsig"), *runs):
+        if a is not None and not torch.equal(a, b):  # no atomics: the same bits every run
+            raise AssertionError(f"{what}: two runs differ in {name}")
+
+
+def _ffn_chain_ms(x, params):
+    """Device ms of the library chain that computes the FFN tail in bf16 (no
+    single PyTorch call does)."""
+    F = torch.nn.functional
+    w1, b1, w2, b2, g, bt = (p.bfloat16() for p in params)
+    d = x.shape[1]
+    with torch.no_grad():
+        ms = _time_ms(lambda: F.layer_norm(x + F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2),
+                                           (d,), g, bt, 1e-12))
+    print(f"library chain F.layer_norm(x + F.linear(F.gelu(F.linear(x, W1, b1)), W2, b2)), "
+          f"bf16 N={x.shape[0]}: {ms:.4f} ms")
+    return ms
+
+
 def check_ffn(dev):
     from vibertgrid_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn
 
@@ -341,31 +389,41 @@ def check_ffn(dev):
     d, f = 768, 3072
     params = _ffn_params(dev, g, d, f)
     with torch.no_grad():
-        # A row count that is not a multiple of the 32-row block, then the flagship's.
-        for n in (200 - 5, B * (T + 2)):
-            x = torch.randn(n, d, generator=g, device=dev).bfloat16()
+        # A row count that is not a multiple of any block's rows, then the
+        # flagship's; then bf16 at D = 256, which takes the FMA body.
+        for n, prm in ((200 - 5, params), (B * (T + 2), params),
+                       (200 - 5, _ffn_params(dev, g, 256, 1024))):
+            xn = torch.randn(n, prm[0].shape[1], generator=g, device=dev).bfloat16()
             for rate in (DROP_RATE, 0.0):
-                got = fused_ffn(x, *params, 1e-12, rate=rate, seed=DROP_SEED)
-                want = ffn_reference(x, *params, 1e-12, seed=DROP_SEED, rate=rate)
+                got = fused_ffn(xn, *prm, 1e-12, rate=rate, seed=DROP_SEED)
+                want = ffn_reference(xn, *prm, 1e-12, seed=DROP_SEED, rate=rate)
                 torch.cuda.synchronize()
-                _assert_close(f"fused_ffn N={n} rate={rate}", got, want, **FFN_TOL)
+                what = f"fused_ffn N={n} D={xn.shape[1]} rate={rate}"
+                _assert_close(what, got, want, **FFN_TOL)
+                if xn.shape[1] == d:
+                    _check_ffn_launches(xn, prm, rate, False, what)
+            if n > 200:
+                x, err = xn, _max_err(got, want)
         ms = _time_ms(lambda: fused_ffn(x, *params, 1e-12))
         drop_ms = _time_ms(lambda: fused_ffn(x, *params, 1e-12, rate=DROP_RATE, seed=DROP_SEED))
         plain_ms = _time_ms(lambda: ffn_reference(x, *params, 1e-12))
     print(f"fused_ffn with dropout {DROP_RATE}: {drop_ms:.3f} ms (without: {ms:.3f} ms)")
+    _ffn_chain_ms(x, params)
+    n = x.shape[0]
     nbytes = (2 * n * d + 2 * d * f) * 2 + (f + 3 * d) * 4
     bound_ms, bound_by = _bound(4 * n * d * f, nbytes)
     return _record("fused_ffn", "fused_ffn.cu", "fused_ffn.py:126",
-                   max_abs_err=_max_err(got, want), ms=ms, plain_ms=plain_ms,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def check_ffn_saved(dev):
-    """The training forward's four outputs against the twin's; then the
-    wrapper on the fp32 parameters (it casts the weights itself): its output
-    against the twin's, and its gradients (kernel forward, plain PyTorch
-    backward from the saved residuals) against the same backward on the
-    twin's residuals and the twin's weights."""
+    """The training forward's four outputs against the twin's, and each of
+    the two launches against its own twin; then the wrapper on the fp32
+    parameters (it casts the weights itself): its output against the twin's,
+    and its gradients (kernel forward, plain PyTorch backward from the saved
+    residuals) against the same backward on the twin's residuals and the
+    twin's weights."""
     from vibertgrid_tpu_torch.ops import fused_ffn as ffn
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -379,14 +437,16 @@ def check_ffn_saved(dev):
                 got = ffn._launch(x, *params, 1e-12, DROP_SEED, rate, saved=True)
                 want = ffn.ffn_saved_reference(x, *params, 1e-12, DROP_SEED, rate)
                 torch.cuda.synchronize()
-            for name, a, w, tol in zip(("y", "h1", "yhat", "rsig"), got, want,
-                                       (FFN_TOL, FFN_TOL, FFN_TOL, RSIG_TOL)):
-                _assert_close(f"fused_ffn_saved {name} N={n} rate={rate}", a, w, **tol)
+                for name, a, w, tol in zip(("y", "h1", "yhat", "rsig"), got, want,
+                                           (FFN_TOL, FFN_TOL, FFN_TOL, RSIG_TOL)):
+                    _assert_close(f"fused_ffn_saved {name} N={n} rate={rate}", a, w, **tol)
+                _check_ffn_launches(x, params, rate, True, f"fused_ffn_saved N={n} rate={rate}")
     err = _max_err(got[0], want[0])
 
-    # The fp32-FMA body on a ragged row count: fp32 at the flagship's widths,
-    # then bf16 storage at a width the tensor-core body does not take.
-    for dt, dd, ff in ((torch.float32, d, f), (torch.bfloat16, 64, 256)):
+    # The FMA body on a ragged row count: fp32 at the flagship's widths, then
+    # bf16 storage at the tiny configuration's width and at D = 256.
+    for dt, dd, ff in ((torch.float32, d, f), (torch.bfloat16, 64, 256),
+                       (torch.bfloat16, 256, 1024)):
         small = _ffn_params(dev, g, dd, ff, dt)
         xs = torch.randn(200 - 5, dd, generator=g, device=dev).to(dt)
         with torch.no_grad():
@@ -395,7 +455,7 @@ def check_ffn_saved(dev):
             torch.cuda.synchronize()
         tols = [FP32_KERNEL_TOL] * 4 if dt == torch.float32 else [FFN_TOL] * 3 + [RSIG_TOL]
         for name, a, w, tol in zip(("y", "h1", "yhat", "rsig"), got_s, want_s, tols):
-            _assert_close(f"fused_ffn_saved FMA body {dt} {name}", a, w, **tol)
+            _assert_close(f"fused_ffn_saved {dt} D={dd} {name}", a, w, **tol)
 
     # The wrapper, given the fp32 masters: its output against the twin's on
     # the cast weights, then its gradients with the kernel's residuals
@@ -436,6 +496,7 @@ def check_ffn_saved(dev):
     remat_ms = _time_ms(lambda: torch.autograd.grad(y_remat, remat_leaves, dy, retain_graph=True))
     print(f"fused_ffn_saved backward (four matmuls + elementwise, plain PyTorch): {bwd_ms:.3f} ms; "
           f"fused_ffn's rematerialising backward (two more matmuls): {remat_ms:.3f} ms")
+    _ffn_chain_ms(x, params)
     # inputs x, W1, W2 and the small vectors; outputs y, h1, yhat, rsig
     nbytes = (3 * n * d + n * f + 2 * d * f) * 2 + (f + 3 * d + n) * 4
     bound_ms, bound_by = _bound(4 * n * d * f, nbytes)
@@ -993,13 +1054,88 @@ def attention_times(dev, tree):
           f"sdpa backward {lib_bwd:.4f}")
 
 
+def ffn_times(dev, tree):
+    """Device time of the FFN kernels (2 and 5) at the flagship shape, with
+    and without dropout, beside the twin's and the library chain's, through
+    ``fused_ffn`` and ``fused_ffn_saved`` alone (given bf16 weights, which
+    they take as they are); each kernel launch's device time by name from
+    the profiler; and the host's time a call (``_ffn_host_us``)."""
+    from vibertgrid_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn, fused_ffn_saved
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    d, f = 768, 3072
+    params = _ffn_params(dev, g, d, f)
+    x = torch.randn(B * (T + 2), d, generator=g, device=dev).bfloat16()
+    runs = {
+        "fused_ffn": lambda: fused_ffn(x, *params, 1e-12),
+        "fused_ffn dropout": lambda: fused_ffn(x, *params, 1e-12, rate=DROP_RATE, seed=DROP_SEED),
+        "fused_ffn_saved": lambda: fused_ffn_saved(x, *params, 1e-12),
+        "fused_ffn_saved dropout": lambda: fused_ffn_saved(x, *params, 1e-12, rate=DROP_RATE,
+                                                           seed=DROP_SEED),
+    }
+    parts = []
+    with torch.no_grad():
+        times = {name: _time_ms(fn) for name, fn in runs.items()}
+        twin = _time_ms(lambda: ffn_reference(x, *params, 1e-12), iters=5)
+        for name, fn in runs.items():
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            parts += [f"{name}: {re.search(r'[a-z_]*ffn[a-z_]*<[^>]*>', e.key).group()} "
+                      f"{e.self_device_time_total / e.count / 1e3:.4f}"
+                      for e in prof.key_averages() if re.search(r'ffn[a-z_]*<', e.key)]
+        host = _ffn_host_us(runs)
+    chain = _ffn_chain_ms(x, params)
+    print(f"FFN kernels of {tree}, N={x.shape[0]} D={d} F={f} bf16, device ms: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in times.items())}; twin {twin:.4f}; "
+          f"library chain {chain:.4f}; by launch: {'; '.join(parts)}")
+    print(f"FFN host us a call of {tree} (median of 40, card busy), C call vg_fused_ffn / "
+          f"whole wrapper: {', '.join(f'{k} {c:.1f} / {w:.1f}' for k, (c, w) in host.items())}")
+
+
+def _ffn_host_us(runs, calls: int = 40):
+    """Host microseconds of one ``vg_fused_ffn`` C call (for the wgmma body:
+    four tensor-map encodes and two launches) and of one whole wrapper call,
+    for each of ``runs``: medians over ``calls`` calls queued behind a spin
+    kernel, so that no call waits for the card."""
+    from vibertgrid_tpu_torch.ops import kernels
+
+    lib = kernels.library()
+    c_call, c_us = lib.vg_fused_ffn, []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        err = c_call(*args)
+        c_us.append((time.perf_counter() - t0) * 1e6)
+        return err
+
+    out = {}
+    lib.vg_fused_ffn = timed
+    try:
+        for name, fn in runs.items():
+            c_us.clear()
+            wrapper_us = []
+            torch.cuda._sleep(40_000_000)  # ~20 ms, longer than the host takes to queue
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                fn()
+                wrapper_us.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+            out[name] = (statistics.median(c_us), statistics.median(wrapper_us))
+    finally:
+        lib.vg_fused_ffn = c_call
+    return out
+
+
 def main(argv) -> int:
     tree = HERE
-    if len(argv) == 4 and argv[:2] == ["--only", "attention"] and argv[2] == "--tree":
+    kernel_modes = (["--only", "attention"], ["--only", "ffn"])
+    if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
-    if argv not in ([], ["--only", "flagship"], ["--only", "attention"]):
-        print("usage: python3 chip_smoke.py [--only flagship | --only attention [--tree DIR]]",
-              file=sys.stderr)
+    if argv not in ([], ["--only", "flagship"], *kernel_modes):
+        print("usage: python3 chip_smoke.py [--only flagship | --only attention [--tree DIR] | "
+              "--only ffn [--tree DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -1022,8 +1158,8 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    if argv == ["--only", "attention"]:  # kernels 1 and 4 alone, for comparing trees
-        attention_times(dev, tree)
+    if argv in kernel_modes:  # kernels 1 and 4, or 2 and 5, alone, for comparing trees
+        (attention_times if argv[1] == "attention" else ffn_times)(dev, tree)
         print(smi)
         return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees

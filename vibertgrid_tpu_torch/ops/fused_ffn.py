@@ -15,9 +15,12 @@
 - :func:`fused_proj_ln` is the attention epilogue
   ``LN(res + dropout(ctx·Wᵀ + b))``; its backward rematerialises too.
 
-On CUDA tensors the FFN forwards launch ``csrc/fused_ffn.cu`` and the
+On CUDA tensors the FFN forwards launch ``csrc/fused_ffn.cu`` (in bf16 at
+D = 768 two kernels a call: an up-projection with gelu into an ``[N, F]``
+scratch, then the down-projection with the residual LayerNorm) and the
 epilogue ``csrc/fused_proj_ln.cu``; on CPU tensors they run
-:func:`ffn_reference`, :func:`ffn_saved_reference` and
+:func:`ffn_reference`, :func:`ffn_saved_reference` (the composition of
+:func:`ffn_up_reference` and :func:`ffn_down_ln_reference`) and
 :func:`proj_ln_reference`, the plain versions the kernels are held against.
 Dropout keeps element ``(row, col)`` where ``splitmix32(row·D + col, seed)``
 reaches ``uint32(rate·2³²)`` and divides kept values by ``1 − rate``.
@@ -93,25 +96,43 @@ def _ln_stats(res: torch.Tensor, eps: float):
     return (res - mean) * rsig, rsig
 
 
-def ffn_saved_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float,
-                        seed: int = 0, rate: float = 0.0):
-    """Plain twin of the saved-residual kernel: ``(y, h1, yhat, rsig)``.
+def ffn_up_reference(x, w1, b1):
+    """Plain twin of the up-projection: ``(h, h1)``, both in x's dtype.
 
-    ``x`` in the compute dtype, W1/W2 cast to it; products accumulate in
-    fp32; gelu takes the unrounded fp32 ``h1`` and its output is rounded to
-    the compute dtype before the second product; biases, dropout and the
-    LayerNorm (variance E[x²]−E[x]²) are fp32. ``h1`` and ``yhat`` are
-    returned in the compute dtype, ``rsig [N, 1]`` in fp32."""
+    ``h1 = x·W1ᵀ + b1`` accumulates in fp32 (W1 cast to x's dtype); gelu takes
+    the unrounded fp32 ``h1``, and ``h = gelu(h1)`` is rounded to x's dtype,
+    the operand of the second product."""
     dt = x.dtype
-    xf = x.float()
-    h1 = xf @ w1.to(dt).float().t() + b1.float()
-    inter = gelu_exact_f32(h1).to(dt).float()
-    out = inter @ w2.to(dt).float().t() + b2.float()
+    h1 = x.float() @ w1.to(dt).float().t() + b1.float()
+    return gelu_exact_f32(h1).to(dt), h1.to(dt)
+
+
+def ffn_down_ln_reference(h, x, w2, b2, ln_scale, ln_bias, eps: float, seed: int = 0,
+                          rate: float = 0.0):
+    """Plain twin of the down-projection with the residual LayerNorm:
+    ``(y, yhat, rsig)`` of ``LN(x + dropout(h·W2ᵀ + b2))``.
+
+    The product accumulates in fp32 (W2 cast to x's dtype); bias, dropout
+    (flat index ``row·D + col``), residual and the LayerNorm (variance
+    E[x²]−E[x]²) are fp32. ``y`` and ``yhat`` are returned in x's dtype,
+    ``rsig [N, 1]`` in fp32."""
+    dt = x.dtype
+    out = h.float() @ w2.to(dt).float().t() + b2.float()
     if rate > 0.0:
         out = _dropout(out, seed, rate)
-    yhat, rsig = _ln_stats(xf + out, eps)
+    yhat, rsig = _ln_stats(x.float() + out, eps)
     y = (yhat * ln_scale.float() + ln_bias.float()).to(dt)
-    return y, h1.to(dt), yhat.to(dt), rsig
+    return y, yhat.to(dt), rsig
+
+
+def ffn_saved_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float,
+                        seed: int = 0, rate: float = 0.0):
+    """Plain twin of the saved-residual kernel: ``(y, h1, yhat, rsig)``, the
+    composition of :func:`ffn_up_reference` and :func:`ffn_down_ln_reference`
+    (the two launches of the kernel's wgmma body)."""
+    h, h1 = ffn_up_reference(x, w1, b1)
+    y, yhat, rsig = ffn_down_ln_reference(h, x, w2, b2, ln_scale, ln_bias, eps, seed, rate)
+    return y, h1, yhat, rsig
 
 
 def ffn_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float,
@@ -120,7 +141,12 @@ def ffn_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float,
     return ffn_saved_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, seed, rate)[0]
 
 
-def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, seed, rate, saved: bool):
+def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, seed, rate, saved: bool, h=None):
+    """One call of the kernel: ``(y, h1, yhat, rsig)``, the last three None
+    unless ``saved``. bf16 at D = 768 runs the wgmma body, whose up-projection
+    writes ``bf16(gelu(h1))`` into an ``[N, F]`` scratch for the
+    down-projection: ``h`` if given (so a check can read it), else a
+    transient ``torch.empty``."""
     name = "fused_ffn_saved" if saved else "fused_ffn"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -137,6 +163,14 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, seed, rate, saved: bool):
             raise ValueError(f"{pname} must be float32 [{size}], got {p.dtype} {tuple(p.shape)}")
     if d not in (64, 128, 256, 512, 768) or f % 128:
         raise ValueError(f"kernel takes D in (64, 128, 256, 512, 768) and F % 128 == 0: {d}, {f}")
+    if x.dtype == torch.bfloat16 and d == 768:
+        if h is None:
+            h = torch.empty((n, f), dtype=x.dtype, device=x.device)
+        kernels.check_inputs(name, x, h)
+        if h.shape != (n, f) or h.dtype != x.dtype:
+            raise ValueError(f"h must be {x.dtype} [{n}, {f}], got {h.dtype} {tuple(h.shape)}")
+    else:
+        h = None
     out = torch.empty_like(x)
     h1 = yhat = rsig = None
     if saved:
@@ -149,7 +183,7 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, seed, rate, saved: bool):
     err = lib.vg_fused_ffn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         ln_scale.data_ptr(), ln_bias.data_ptr(), out.data_ptr(), ptr(h1), ptr(yhat), ptr(rsig),
-        n, d, f, float(eps), kernels.dtype_code(x.dtype),
+        ptr(h), n, d, f, float(eps), kernels.dtype_code(x.dtype),
         *kernels.dropout_args(seed, rate, _keep_div(rate)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -52,9 +52,9 @@ _SIGNATURES = {
     # q, k, v, bias, d_out, lse, dq, dk, dv, d_bias_part, delta, B, T, H, D, scale, dtype,
     # dropout..., stream
     "vg_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, *_DROPOUT, _P],
-    # x, w1, b1, w2, b2, gamma, beta, out, h1, yhat, rsig, N, D, F, eps, dtype,
+    # x, w1, b1, w2, b2, gamma, beta, out, h1, yhat, rsig, h, N, D, F, eps, dtype,
     # dropout..., stream
-    "vg_fused_ffn": [_P] * 11 + [_I, _I, _I, _F, _I, *_DROPOUT, _P],
+    "vg_fused_ffn": [_P] * 12 + [_I, _I, _I, _F, _I, *_DROPOUT, _P],
     # ctx, res, w, b, gamma, beta, out, N, D, eps, dtype, dropout..., stream
     "vg_fused_proj_ln": [_P] * 7 + [_I, _I, _F, _I, *_DROPOUT, _P],
     # emb, boxes, mask, out, B, S, row_bytes, height, width, stride, stream

@@ -4,6 +4,8 @@
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
     python3 chip_smoke.py --only attention [--tree DIR]   # build, then time kernels 1 and 4
     python3 chip_smoke.py --only ffn [--tree DIR]         # build, then time kernels 2 and 5
+    python3 chip_smoke.py --only proj_ln [--tree DIR]     # build, then time kernel 7
+    python3 chip_smoke.py --only scatter_bwd [--tree DIR] # build, then time kernel 6
 
 1. builds the hand-written kernels from ``vibertgrid_tpu_torch/csrc``
    (``sm_90a``) into ``build/vibertgrid_tpu_torch/``;
@@ -13,9 +15,12 @@
    takes its other tensor-core body, its row statistic, its backward against
    both plain backwards and twice for equal bits; the FFN's two launches each
    against its own twin and twice for equal bits, and its FMA body in bf16
-   at widths 64 and 256), and times kernel, twin and, where one PyTorch call computes the same
-   function, that call (for the FFN, which no single call computes, the
-   chain of library calls);
+   at widths 64 and 256; the attention epilogue's FMA body likewise; the
+   scatter backward's cell list against ``winner_cells`` and its sums against
+   ``scatter_backward_pieces``, both bit for bit, and twice for equal bits),
+   and times kernel, twin and, where one PyTorch call computes the same
+   function, that call (for the FFN and the epilogue, which no single call
+   computes, the chain of library calls);
 3. drives the flagship inference forward (BERT-base-uncased, ResNet-34-FPN,
    simplified head, bf16; batch 16, 512x384 images, one 510-token window,
    128 segments) through the port's entry points, checks its output and
@@ -49,7 +54,9 @@ package's public ``flash_attention`` only, so ``--tree DIR`` can point this
 script at another checkout's package (an earlier commit unpacked under a
 directory that ``.gitignore`` lists) and time both with one clock; ``--only
 ffn`` does it for the two FFN kernels through ``fused_ffn`` and
-``fused_ffn_saved``.
+``fused_ffn_saved``, ``--only proj_ln`` for the attention epilogue through
+``fused_proj_ln`` and ``--only scatter_bwd`` for the scatter backward through
+``grid_scatter`` and autograd.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -541,7 +548,10 @@ def check_proj_ln(dev):
         if not torch.equal(y > 0, keep_mask((n, d), DROP_SEED, 0.4, dev)):
             raise AssertionError("fused_proj_ln: dropped positions differ from hash_dropout's")
 
-        for dt, dd, tol in ((torch.float32, d, FP32_KERNEL_TOL), (torch.bfloat16, 64, FFN_TOL)):
+        # the FMA body: fp32 at the flagship's width, bf16 at the tiny
+        # configuration's and at 256
+        for dt, dd, tol in ((torch.float32, d, FP32_KERNEL_TOL), (torch.bfloat16, 64, FFN_TOL),
+                            (torch.bfloat16, 256, FFN_TOL)):
             small = proj_masters(dd)
             small = (small[0].to(dt), *small[1:])
             cs, rs = randn(200 - 5, dd).to(dt), randn(200 - 5, dd).to(dt)
@@ -584,11 +594,16 @@ def check_proj_ln(dev):
           f"unfused epilogue (F.linear, add, models/norm.py LayerNorm) {unfused_ms:.3f} ms; "
           f"F.layer_norm(res + F.linear(ctx, W, b)) {composed_ms:.3f} ms (no single library "
           f"call computes the function); rematerialising backward (plain PyTorch) {bwd_ms:.3f} ms")
-    nbytes = (3 * n * d + d * d) * 2 + 3 * d * 4
-    bound_ms, bound_by = _bound(2 * n * d * d, nbytes)
+    bound_ms, bound_by = _proj_ln_bound(n, d)
     return _record("fused_proj_ln", "fused_proj_ln.cu", "fused_ffn.py:588",
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=None)
+                   bound_by=bound_by, library_ms=composed_ms)
+
+
+def _proj_ln_bound(n, d):
+    """ctx, res read and out written once, W and the three vectors read once;
+    2 N D^2 operations."""
+    return _bound(2 * n * d * d, (3 * n * d + d * d) * 2 + 3 * d * 4)
 
 
 def _scatter_inputs(dev):
@@ -630,8 +645,12 @@ def check_scatter(dev):
 
 
 def check_scatter_bwd(dev):
-    from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter, scatter_backward_reference
-    from vibertgrid_tpu_torch.ops.rasterize import box_winner_map
+    """The scatter backward against its twin on a ragged grid in fp32 and
+    bf16 and on the flagship's, all on the check's boxes (a page-wide box
+    under the others, boxes past the edge, inside one cell, covered, masked);
+    its first launch's cell list against ``winner_cells`` and its sums
+    against ``scatter_backward_pieces``, both bit for bit; two runs bit-equal."""
+    from vibertgrid_tpu_torch.ops import grid_scatter as gs
 
     boxes, mask = _scatter_inputs(dev)
     g = torch.Generator(device=dev).manual_seed(8)
@@ -640,26 +659,73 @@ def check_scatter_bwd(dev):
                                  (H // 8, W // 8, 768, torch.bfloat16)):
         emb = torch.randn(B, S, d, generator=g, device=dev).to(dt).requires_grad_()
         d_out = torch.randn(B, height, width, d, generator=g, device=dev).to(dt)
-        out = grid_scatter(emb, boxes, mask, height=height, width=width, stride=8)
+        out = gs.grid_scatter(emb, boxes, mask, height=height, width=width, stride=8)
         (got,) = torch.autograd.grad(out, emb, d_out, retain_graph=True)
-        want = scatter_backward_reference(d_out, boxes, mask, stride=8)
+        (again,) = torch.autograd.grad(out, emb, d_out, retain_graph=True)
+        lists = (torch.empty(B, S + 2, dtype=torch.int32, device=dev),
+                 torch.empty(B, height * width, dtype=torch.int32, device=dev))
+        direct = gs._backward(d_out, boxes, mask, 8, lists=lists)
+        want = gs.scatter_backward_reference(d_out, boxes, mask, stride=8)
+        want_lists = gs.winner_cells(boxes, mask, height=height, width=width, stride=8)
+        want_pieces = gs.scatter_backward_pieces(d_out, boxes, mask, stride=8)
         torch.cuda.synchronize()
+        what = f"bertgrid_scatter_bwd {height}x{width}x{d} {dt}"
         # fp32 sums of up to a page of bf16 rows in another order, then one
         # rounding to bf16: one bf16 ulp of the result.
         tol = FP32_KERNEL_TOL if dt == torch.float32 else dict(atol=2 ** -7, rtol=2 ** -7)
-        _assert_close(f"bertgrid_scatter_bwd {height}x{width}x{d} {dt}", got, want, **tol)
+        _assert_close(what, got, want, **tol)
         if not bool((got[~mask] == 0).all()) or not bool((got[:, 4] == 0).all()):
-            raise AssertionError("bertgrid_scatter_bwd: masked or covered segment got a gradient")
+            raise AssertionError(f"{what}: masked or covered segment got a gradient")
+        for name, a, w in zip(("offsets", "cells"), lists, want_lists):
+            if not torch.equal(a, w):
+                raise AssertionError(f"{what}: the kernel's {name} differ from winner_cells'")
+        if not torch.equal(got, want_pieces):
+            raise AssertionError(f"{what}: differs from the piece-order sum, max err "
+                                 f"{_max_err(got, want_pieces)}")
+        if not (torch.equal(got, again) and torch.equal(got, direct)):  # no float atomics
+            raise AssertionError(f"{what}: two runs differ")
+    # the page-wide box's cells reach across many pieces of the list
+    spanned = ((want_lists[0][:, 1] - 1) // gs.PIECE + 1).min().item()
+    print(f"bertgrid_scatter_bwd: cell lists and sums bit-equal to winner_cells and "
+          f"scatter_backward_pieces; the page-wide segment spans at least {spanned} pieces "
+          f"of {gs.PIECE} cells")
     ms = _time_ms(lambda: torch.autograd.grad(out, emb, d_out, retain_graph=True))
     with torch.no_grad():
-        plain_ms = _time_ms(lambda: scatter_backward_reference(d_out, boxes, mask, stride=8))
-    # the rows of the cells that some segment won are read once; d_emb written
-    won = int((box_winner_map(boxes, mask, height=height, width=width, stride=8) > 0).sum())
-    nbytes = won * d * 2 + emb.numel() * 2 + boxes.numel() * 4 + mask.numel()
-    bound_ms, bound_by = _bound(0, nbytes)
+        plain_ms = _time_ms(lambda: gs.scatter_backward_reference(d_out, boxes, mask, stride=8))
+        library_ms = _index_add_ms(d_out, boxes, mask)
+    bound_ms, bound_by = _scatter_bwd_bound(d_out, boxes, mask)
     return _record("bertgrid_scatter_bwd", "bertgrid_scatter_bwd.cu", "pallas_scatter.py:75",
                    max_abs_err=_max_err(got, want), ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def _scatter_bwd_bound(d_out, boxes, mask):
+    """The rows of the cells that some segment won are read once, d_emb
+    written once, boxes and mask read once."""
+    from vibertgrid_tpu_torch.ops.rasterize import box_winner_map
+
+    b, height, width, d = d_out.shape
+    won = int((box_winner_map(boxes, mask, height=height, width=width, stride=8) > 0).sum())
+    size = d_out.element_size()
+    return _bound(0, won * d * size + b * boxes.shape[1] * d * size + boxes.numel() * 4
+                  + mask.numel())
+
+
+def _index_add_ms(d_out, boxes, mask):
+    """Device ms of ``index_add_``, the library call nearest the backward:
+    d_out's rows added into ``[B·(S+1), D]`` at the winner map's rows. The
+    index is made beforehand, and the call accumulates in d_out's dtype (it
+    takes one dtype for both)."""
+    from vibertgrid_tpu_torch.ops.rasterize import box_winner_map
+
+    b, height, width, d = d_out.shape
+    s = boxes.shape[1]
+    winner = box_winner_map(boxes, mask, height=height, width=width, stride=8)
+    index = (winner.reshape(b, -1).long()
+             + (s + 1) * torch.arange(b, device=d_out.device)[:, None]).reshape(-1)
+    rows = d_out.reshape(-1, d)
+    acc = torch.zeros(b * (s + 1), d, dtype=d_out.dtype, device=d_out.device)
+    return _time_ms(lambda: acc.index_add_(0, index, rows))
 
 
 def _device_time_table(fn, wall_s, what):
@@ -1059,7 +1125,7 @@ def ffn_times(dev, tree):
     and without dropout, beside the twin's and the library chain's, through
     ``fused_ffn`` and ``fused_ffn_saved`` alone (given bf16 weights, which
     they take as they are); each kernel launch's device time by name from
-    the profiler; and the host's time a call (``_ffn_host_us``)."""
+    the profiler; and the host's time a call (``_host_us``)."""
     from vibertgrid_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn, fused_ffn_saved
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1085,7 +1151,7 @@ def ffn_times(dev, tree):
             parts += [f"{name}: {re.search(r'[a-z_]*ffn[a-z_]*<[^>]*>', e.key).group()} "
                       f"{e.self_device_time_total / e.count / 1e3:.4f}"
                       for e in prof.key_averages() if re.search(r'ffn[a-z_]*<', e.key)]
-        host = _ffn_host_us(runs)
+        host = _host_us(runs, "vg_fused_ffn")
     chain = _ffn_chain_ms(x, params)
     print(f"FFN kernels of {tree}, N={x.shape[0]} D={d} F={f} bf16, device ms: "
           f"{', '.join(f'{k} {v:.4f}' for k, v in times.items())}; twin {twin:.4f}; "
@@ -1094,15 +1160,15 @@ def ffn_times(dev, tree):
           f"whole wrapper: {', '.join(f'{k} {c:.1f} / {w:.1f}' for k, (c, w) in host.items())}")
 
 
-def _ffn_host_us(runs, calls: int = 40):
-    """Host microseconds of one ``vg_fused_ffn`` C call (for the wgmma body:
-    four tensor-map encodes and two launches) and of one whole wrapper call,
-    for each of ``runs``: medians over ``calls`` calls queued behind a spin
-    kernel, so that no call waits for the card."""
+def _host_us(runs, c_name: str, calls: int = 40):
+    """Host microseconds of one call of the C entry ``c_name`` (for the wgmma
+    bodies it encodes the tensor maps and launches) and of one whole wrapper
+    call, for each of ``runs``: medians over ``calls`` calls queued behind a
+    spin kernel, so that no call waits for the card."""
     from vibertgrid_tpu_torch.ops import kernels
 
     lib = kernels.library()
-    c_call, c_us = lib.vg_fused_ffn, []
+    c_call, c_us = getattr(lib, c_name), []
 
     def timed(*args):
         t0 = time.perf_counter()
@@ -1111,7 +1177,7 @@ def _ffn_host_us(runs, calls: int = 40):
         return err
 
     out = {}
-    lib.vg_fused_ffn = timed
+    setattr(lib, c_name, timed)
     try:
         for name, fn in runs.items():
             c_us.clear()
@@ -1124,18 +1190,108 @@ def _ffn_host_us(runs, calls: int = 40):
             torch.cuda.synchronize()
             out[name] = (statistics.median(c_us), statistics.median(wrapper_us))
     finally:
-        lib.vg_fused_ffn = c_call
+        setattr(lib, c_name, c_call)
     return out
+
+
+def _kernel_ms_by_name(fn, pattern: str, calls: int = 5):
+    """``[(kernel name, device ms a launch, launches a call)]`` of the kernels
+    whose profiler name matches ``pattern``, over ``calls`` calls of ``fn``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(re.search(pattern, e.key).group(), e.self_device_time_total / e.count / 1e3,
+             e.count / calls) for e in prof.key_averages() if re.search(pattern, e.key)]
+
+
+def proj_ln_times(dev, tree):
+    """Device time of the attention epilogue (kernel 7) at the flagship shape
+    (N = 8192, D = 768, bf16), with and without dropout, beside the twin's,
+    the library chain's ``F.layer_norm(res + F.linear(ctx, W, b))`` and the
+    bound, through ``fused_proj_ln`` alone (given bf16 W, which it takes as
+    it is); the kernel that ran, by name; and the host's time a call."""
+    from vibertgrid_tpu_torch.ops.fused_ffn import fused_proj_ln, proj_ln_reference
+
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(9)
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    d, n = 768, B * (T + 2)
+    w, b, gamma, beta = randn(d, d) * d ** -0.5, randn(d) * 0.1, 1 + 0.1 * randn(d), 0.1 * randn(d)
+    params = (w.bfloat16(), b, gamma, beta)
+    bf = tuple(p.bfloat16() for p in (w, b, gamma, beta))
+    ctx, res = randn(n, d).bfloat16(), randn(n, d).bfloat16()
+    runs = {
+        "fused_proj_ln": lambda: fused_proj_ln(ctx, res, *params, 1e-12),
+        "fused_proj_ln dropout": lambda: fused_proj_ln(ctx, res, *params, 1e-12, rate=DROP_RATE,
+                                                       seed=DROP_SEED),
+    }
+    with torch.no_grad():
+        times = {name: _time_ms(fn) for name, fn in runs.items()}
+        twin = _time_ms(lambda: proj_ln_reference(ctx, res, *params, 1e-12), iters=5)
+        chain = _time_ms(lambda: F.layer_norm(res + F.linear(ctx, bf[0], bf[1]), (d,), bf[2],
+                                              bf[3], 1e-12))
+        parts = [f"{name}: {k} {ms:.4f} x{count:g}" for name, fn in runs.items()
+                 for k, ms, count in _kernel_ms_by_name(fn, r"[a-z_]*(proj_ln|ffn_down_ln)"
+                                                            r"[a-z_]*<[^>]*>")]
+        host = _host_us(runs, "vg_fused_proj_ln")
+    bound_ms, bound_by = _proj_ln_bound(n, d)
+    print(f"attention epilogue kernel of {tree}, N={n} D={d} bf16, device ms: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in times.items())}; twin {twin:.4f}; library "
+          f"chain F.layer_norm(res + F.linear(ctx, W, b)) {chain:.4f}; bound {bound_ms:.4f} "
+          f"({bound_by}); by launch: {'; '.join(parts)}")
+    print(f"attention epilogue host us a call of {tree} (median of 40, card busy), C call "
+          f"vg_fused_proj_ln / whole wrapper: "
+          f"{', '.join(f'{k} {c:.1f} / {w:.1f}' for k, (c, w) in host.items())}")
+
+
+def scatter_bwd_times(dev, tree):
+    """Device time of the scatter backward (kernel 6) at the flagship's grid
+    (64 x 48 cells, D = 768, bf16) on two sets of boxes: the check's, under a
+    page-wide box, and ``make_batch``'s own; beside the twin's, ``index_add_``'s
+    and the bound, through ``grid_scatter`` and autograd alone; each kernel
+    of a call by name, with its launches a call."""
+    from vibertgrid_tpu_torch.entry import make_batch
+    from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter, scatter_backward_reference
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    height, width, d = H // 8, W // 8, 768
+    batch = make_batch(B, H, W, T, S, VOCAB, seed=0, device=dev)
+    lines = []
+    for name, (boxes, mask) in (("page box", _scatter_inputs(dev)),
+                                ("flagship boxes", (batch.boxes, batch.box_mask))):
+        emb = torch.randn(B, S, d, generator=g, device=dev).bfloat16().requires_grad_()
+        d_out = torch.randn(B, height, width, d, generator=g, device=dev).bfloat16()
+        out = grid_scatter(emb, boxes, mask, height=height, width=width, stride=8)
+
+        def run():
+            return torch.autograd.grad(out, emb, d_out, retain_graph=True)
+
+        ms = _time_ms(run)
+        with torch.no_grad():
+            plain = _time_ms(lambda: scatter_backward_reference(d_out, boxes, mask, stride=8))
+            library = _index_add_ms(d_out, boxes, mask)
+        bound_ms, bound_by = _scatter_bwd_bound(d_out, boxes, mask)
+        parts = ", ".join(f"{k} {kms:.4f} x{count:g}"
+                          for k, kms, count in _kernel_ms_by_name(run, r"scatter_bwd[a-z_]*"))
+        lines.append(f"{name}: {ms:.4f} (by launch: {parts}), twin {plain:.4f}, index_add_ "
+                     f"{library:.4f}, bound {bound_ms:.4f} ({bound_by})")
+    print(f"scatter backward kernel of {tree}, B={B} {height}x{width} D={d} bf16, device ms: "
+          + "; ".join(lines))
+
+
+KERNEL_MODES = {"attention": attention_times, "ffn": ffn_times, "proj_ln": proj_ln_times,
+                "scatter_bwd": scatter_bwd_times}
 
 
 def main(argv) -> int:
     tree = HERE
-    kernel_modes = (["--only", "attention"], ["--only", "ffn"])
+    kernel_modes = [["--only", mode] for mode in KERNEL_MODES]
     if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
     if argv not in ([], ["--only", "flagship"], *kernel_modes):
-        print("usage: python3 chip_smoke.py [--only flagship | --only attention [--tree DIR] | "
-              "--only ffn [--tree DIR]]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--only flagship | --only "
+              f"{'|'.join(KERNEL_MODES)} [--tree DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -1158,8 +1314,8 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    if argv in kernel_modes:  # kernels 1 and 4, or 2 and 5, alone, for comparing trees
-        (attention_times if argv[1] == "attention" else ffn_times)(dev, tree)
+    if argv in kernel_modes:  # one kernel or pair alone, for comparing trees
+        KERNEL_MODES[argv[1]](dev, tree)
         print(smi)
         return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees

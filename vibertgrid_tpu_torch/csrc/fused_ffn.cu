@@ -40,6 +40,7 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "ffn_down_ln.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -300,7 +301,9 @@ cudaError_t dispatch(const Args& a) {
 //         statistics in registers: sums over the quad of lanes that share a
 //         row, then the three warpgroups' partials through shared memory,
 //         added in a fixed order. b2, gamma and beta are read from shared
-//         memory. Grid N/64 (128 blocks, one wave).
+//         memory. Grid N/64 (128 blocks, one wave). The fused attention
+//         epilogue runs this same kernel with h = its context rows, W2 = its
+//         out-projection and K = 768 (vg::ffn_down_ln, ffn_down_ln.cuh).
 //
 // Both kernels take their tiles by TMA (rows past N read as zeros, which
 // makes any N work): thread 0 issues a stage's loads S - 1 stages ahead and
@@ -323,7 +326,7 @@ namespace hopper {
 
 using bf16 = __nv_bfloat16;
 using namespace vg::gmma;
-constexpr int kD = 768;
+constexpr int kD = vg::kDownLnWidth;
 
 // up: 128 rows x 128 columns of h a block, two warpgroups of m64n128k16 over
 // 64-deep stages (128-byte swizzle) through a ring of three; two blocks an SM.
@@ -547,29 +550,40 @@ ffn_down_ln_kernel(const __grid_constant__ CUtensorMap h_map,
   copy_rows<kDownCols>(stage, out, row0, N, kD, col0, kD);
 }
 
+// The down-projection alone: also the fused attention epilogue's bf16 body
+// at D = 768 (vg::ffn_down_ln, below).
 template <bool SAVED>
-cudaError_t launch(const Args& a) {
-  if (a.h == nullptr) return cudaErrorInvalidValue;
-  CUtensorMap x_map, w1_map, h_map, w2_map;
+cudaError_t launch_down(const vg::DownLn& a) {
+  CUtensorMap h_map, w2_map;
   cudaError_t err;
-  if ((err = tensor_map(&x_map, a.x, kD, a.N, kUpRows)) != cudaSuccess ||
-      (err = tensor_map(&w1_map, a.w1, kD, a.F, kUpCols)) != cudaSuccess ||
-      (err = tensor_map(&h_map, a.h, a.F, a.N, kDownRows, kDownBK)) != cudaSuccess ||
+  if ((err = tensor_map(&h_map, a.h, a.F, a.N, kDownRows, kDownBK)) != cudaSuccess ||
       (err = tensor_map(&w2_map, a.w2, a.F, kD, kDownCols, kDownBK)) != cudaSuccess)
     return err;
-  static std::atomic<uint32_t> up_ready{0}, down_ready{0};
-  if ((err = allow_smem(ffn_up_kernel<SAVED>, kUpSmem, up_ready)) != cudaSuccess ||
-      (err = allow_smem(ffn_down_ln_kernel<SAVED>, kDownSmem, down_ready)) != cudaSuccess)
-    return err;
-  const dim3 up_grid((a.F + kUpCols - 1) / kUpCols, (a.N + kUpRows - 1) / kUpRows);
-  ffn_up_kernel<SAVED><<<up_grid, kUpThreads, kUpSmem, a.stream>>>(
-      x_map, w1_map, a.b1, static_cast<bf16*>(a.h), static_cast<bf16*>(a.h1), a.N, a.F);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  static std::atomic<uint32_t> ready{0};
+  if ((err = allow_smem(ffn_down_ln_kernel<SAVED>, kDownSmem, ready)) != cudaSuccess) return err;
   ffn_down_ln_kernel<SAVED><<<(a.N + kDownRows - 1) / kDownRows, kDownThreads, kDownSmem,
                               a.stream>>>(
       h_map, w2_map, static_cast<const bf16*>(a.x), a.b2, a.gamma, a.beta,
       static_cast<bf16*>(a.out), static_cast<bf16*>(a.yhat), a.rsig, a.N, a.F, a.eps, a.drop);
   return cudaGetLastError();
+}
+
+template <bool SAVED>
+cudaError_t launch(const Args& a) {
+  if (a.h == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap x_map, w1_map;
+  cudaError_t err;
+  if ((err = tensor_map(&x_map, a.x, kD, a.N, kUpRows)) != cudaSuccess ||
+      (err = tensor_map(&w1_map, a.w1, kD, a.F, kUpCols)) != cudaSuccess)
+    return err;
+  static std::atomic<uint32_t> ready{0};
+  if ((err = allow_smem(ffn_up_kernel<SAVED>, kUpSmem, ready)) != cudaSuccess) return err;
+  const dim3 up_grid((a.F + kUpCols - 1) / kUpCols, (a.N + kUpRows - 1) / kUpRows);
+  ffn_up_kernel<SAVED><<<up_grid, kUpThreads, kUpSmem, a.stream>>>(
+      x_map, w1_map, a.b1, static_cast<bf16*>(a.h), static_cast<bf16*>(a.h1), a.N, a.F);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_down<SAVED>(vg::DownLn{a.h, a.w2, a.x, a.b2, a.gamma, a.beta, a.out, a.yhat,
+                                       a.rsig, a.N, a.F, a.eps, a.drop, a.stream});
 }
 
 }  // namespace hopper
@@ -580,6 +594,12 @@ cudaError_t dispatch_bf16(const Args& a) {
 }
 
 }  // namespace
+
+cudaError_t vg::ffn_down_ln(const DownLn& a) {
+  if (a.N < 1 || a.F < 32 || a.F % 32 != 0 || (a.yhat == nullptr) != (a.rsig == nullptr))
+    return cudaErrorInvalidValue;
+  return a.yhat != nullptr ? hopper::launch_down<true>(a) : hopper::launch_down<false>(a);
+}
 
 // x, out: [N, D]; w1: [F, D]; w2: [D, F] (dtype 0 = fp32, 1 = bf16);
 // b1 [F], b2, gamma, beta [D]: fp32. D in {64, 128, 256, 512, 768},

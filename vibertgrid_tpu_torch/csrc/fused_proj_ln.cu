@@ -6,31 +6,36 @@
 // the encoder's attn_epilogue="fused"). The TPU kernel kept W and a 1024-row
 // tile of ctx, res and out in 13 MB of VMEM (_proj_row_tile, fused_ffn.py:620).
 // A Hopper block has 227 KB of shared memory and the LayerNorm needs a whole
-// D-wide row, so here a block owns R = 32 full rows, keeps their fp32 [32, D]
-// accumulator in registers (96 floats a thread at D = 768, which is what caps
-// R) and streams W through shared memory along K. The projection never
-// reaches device memory: bias, dropout, residual and the row's mean and mean
-// of squares (variance E[r^2] - E[r]^2, as models/norm.py's LayerNorm) are
-// applied to the accumulator and the row is written once.
+// D-wide row, so a block owns whole rows and streams W along K. The
+// projection never reaches device memory: bias, dropout, residual and the
+// row's mean and mean of squares (variance E[r^2] - E[r]^2, as
+// models/norm.py's LayerNorm) are applied to the accumulator and the row is
+// written once.
 //
 // Bound on this card: bytes. At the flagship (N = 8192, D = 768, bf16) ctx and
 // res are read and out written once (37.7 MB) and W once (1.2 MB): 11.6 us at
 // 3.35 TB/s, against 2 N D^2 = 9.7 GFLOP, 9.8 us at the 989 TFLOP/s bf16
-// tensor peak. W is re-read by every block, from L2.
+// tensor peak.
 //
-// Two bodies share that plan, as in fused_ffn.cu: bf16 with D a multiple of
-// 128 runs the product on the tensor cores as 16x16x16 mma (WMMA) with the W
-// tiles double-buffered by cp.async (namespace tc); every other case (fp32,
-// narrow widths) runs fp32 FMAs on the CUDA cores. Neither uses wgmma or TMA.
+// Two bodies. bf16 at D = 768 (every full-width configuration) is the fused
+// FFN's down-projection with K = 768: the same function as LN(x + drop(h
+// W2^T + b2)) with h = ctx, W2 = W and x = res, so it runs that kernel
+// (vg::ffn_down_ln, fused_ffn.cu, one launch a call): 64 whole rows a block,
+// three warpgroups of wgmma m64n256k16, ctx and W tiles by TMA through a ring
+// of four 32-deep stages (24 stages at K = 768), the LayerNorm in registers.
+// It multiplies kept values by 1 / (1 - rate) where the FMA body and the twin
+// divide by 1 - rate: within an ulp of fp32 before the LayerNorm, and the
+// dropped set is the same. Every other case (fp32; bf16 at D = 64, the tiny
+// configuration's width, or 128-512, which no configuration runs) takes fp32
+// FMAs on the CUDA cores, below, with bf16 storage where the inputs are bf16.
 //
 // Dropout is the stateless hash of ops/dropout.py on the [N, D] projection:
 // element (row, col) is kept where splitmix32(row * D + col, seed) reaches
 // the threshold, with the global row, so the fused and the unfused epilogue
 // drop the same elements for one seed.
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "ffn_down_ln.cuh"
 
 namespace {
 
@@ -167,141 +172,10 @@ cudaError_t dispatch(const Args& a) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores. The block's ctx and res rows sit in shared memory
-// (2 x 49 KB at D = 768); W[:, k:k+32] tiles stream through a double buffer
-// with cp.async (2 x 60 KB), stage s + 1 in flight while stage s computes.
-// Warp w owns accumulator columns 16 NB w .. (NB = D / 128 fragments for each
-// of the 2 row blocks: 12 fragments, 96 floats a thread at D = 768). After the
-// walk the accumulators go to shared memory as fp32 rows (97 KB, over ctx and
-// the tiles) and warp w finishes rows 4 w .. 4 w + 3.
-
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
-constexpr int kKB = 32;  // K-depth of a W tile
-
-__host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-template <int D>
-struct Smem {
-  static constexpr int kLdA = D + 8, kLdW = kKB + 8, kLdO = D + 4;
-  static constexpr int kA = align128(kR * kLdA * 2);  // ctx; res the same
-  static constexpr int kW = align128(D * kLdW * 2);   // one buffer
-  static_assert(kR * kLdO * 4 <= kA + 2 * kW, "fp32 rows must fit over ctx and the tiles");
-  static constexpr int kBytes = 2 * kA + 2 * kW;
-  static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
-  static constexpr int kStages = D / kKB;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-proj_ln_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ res,
-               const bf16* __restrict__ w, const float* __restrict__ b,
-               const float* __restrict__ gamma, const float* __restrict__ beta,
-               bf16* __restrict__ out, int N, float eps, vg::Dropout drop) {
-  using L = Smem<D>;
-  constexpr int NB = D / 128;  // accumulator column fragments per warp
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  bf16* Cs = reinterpret_cast<bf16*>(smem_tc);                         // [kR][kLdA]
-  bf16* Ws = reinterpret_cast<bf16*>(smem_tc + L::kA);                 // [2][D][kLdW]
-  bf16* Rs = reinterpret_cast<bf16*>(smem_tc + L::kA + 2 * L::kW);     // [kR][kLdA]
-  float* Os = reinterpret_cast<float*>(smem_tc);                       // after the walk
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row_base = blockIdx.x * kR;
-  for (int i = tid; i < kR * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c8 = i % (D / 8), row = row_base + r;
-    uint4 cv = make_uint4(0, 0, 0, 0), rv = cv;
-    if (row < N) {
-      cv = reinterpret_cast<const uint4*>(ctx + (size_t)row * D)[c8];
-      rv = reinterpret_cast<const uint4*>(res + (size_t)row * D)[c8];
-    }
-    *reinterpret_cast<uint4*>(Cs + r * L::kLdA + c8 * 8) = cv;
-    *reinterpret_cast<uint4*>(Rs + r * L::kLdA + c8 * 8) = rv;
-  }
-
-  auto prefetch = [&](int s) {
-    bf16* dst = Ws + (s & 1) * (L::kW / 2);
-    for (int e = tid; e < D * kKB / 8; e += kThreads) {
-      const int n = e / (kKB / 8), c8 = e % (kKB / 8);
-      vg::cp_async16(dst + n * L::kLdW + c8 * 8, w + (size_t)n * D + s * kKB + c8 * 8);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NB];
-#pragma unroll
-  for (int rb = 0; rb < 2; ++rb)
-#pragma unroll
-    for (int j = 0; j < NB; ++j) wmma::fill_fragment(acc[rb][j], 0.f);
-
-  prefetch(0);
-  vg::cp_async_commit();
-  for (int s = 0; s < L::kStages; ++s) {
-    if (s + 1 < L::kStages) prefetch(s + 1);
-    vg::cp_async_commit();
-    vg::cp_async_wait<1>();
-    __syncthreads();  // tile s has landed (and, at s = 0, the ctx rows)
-    const bf16* tile = Ws + (s & 1) * (L::kW / 2);
-#pragma unroll
-    for (int kk = 0; kk < kKB; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int rb = 0; rb < 2; ++rb)
-        wmma::load_matrix_sync(a[rb], Cs + rb * 16 * L::kLdA + s * kKB + kk, L::kLdA);
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-        wmma::load_matrix_sync(bw, tile + (warp * NB + n) * 16 * L::kLdW + kk, L::kLdW);
-#pragma unroll
-        for (int rb = 0; rb < 2; ++rb) wmma::mma_sync(acc[rb][n], a[rb], bw, acc[rb][n]);
-      }
-    }
-    __syncthreads();  // every warp is done with tile s before it is refilled
-  }
-
-#pragma unroll
-  for (int rb = 0; rb < 2; ++rb)
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-      wmma::store_matrix_sync(Os + rb * 16 * L::kLdO + (warp * NB + j) * 16, acc[rb][j],
-                              L::kLdO, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = 0; i < 4; ++i) {
-    const int r = warp * 4 + i, row = row_base + r;
-    float vals[D / 32];
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) vals[j] = Os[r * L::kLdO + lane + 32 * j];
-    finish_row<bf16, D / 32>(
-        vals, [&](int c) { return __bfloat162float(Rs[r * L::kLdA + c]); }, row, lane, row < N,
-        b, gamma, beta, out, eps, drop);
-  }
-}
-
-template <int D>
-cudaError_t launch(const Args& a) {
-  constexpr int smem = Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_ln_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  proj_ln_kernel<D><<<(a.N + kR - 1) / kR, kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.ctx), static_cast<const bf16*>(a.res),
-      static_cast<const bf16*>(a.w), a.b, a.gamma, a.beta, static_cast<bf16*>(a.out), a.N,
-      a.eps, a.drop);
-  return cudaGetLastError();
-}
-
-}  // namespace tc
-
 cudaError_t dispatch_bf16(const Args& a) {
-  switch (a.D) {
-    case 128: return tc::launch<128>(a);
-    case 256: return tc::launch<256>(a);
-    case 512: return tc::launch<512>(a);
-    case 768: return tc::launch<768>(a);
-    default: return dispatch<__nv_bfloat16>(a);
-  }
+  if (a.D != vg::kDownLnWidth) return dispatch<__nv_bfloat16>(a);
+  return vg::ffn_down_ln(vg::DownLn{a.ctx, a.w, a.res, a.b, a.gamma, a.beta, a.out, nullptr,
+                                    nullptr, a.N, a.D, a.eps, a.drop, a.stream});
 }
 
 }  // namespace
@@ -310,7 +184,9 @@ cudaError_t dispatch_bf16(const Args& a) {
 // beta [D]: fp32. D in {64, 128, 256, 512, 768}, any N >= 1. Dropout of the
 // projection when dropout != 0: element (row, col) is kept where
 // splitmix32(row * D + col, seed) >= threshold, and kept values are divided
-// by keep_div = 1 - rate, after + b and before the residual.
+// by keep_div = 1 - rate (the wgmma body multiplies by its reciprocal), after
+// + b and before the residual. bf16 at D = 768 needs ctx and W 16-byte
+// aligned (TMA); a failed tensor-map encode returns cudaErrorInvalidValue.
 extern "C" int vg_fused_proj_ln(const void* ctx, const void* res, const void* w, const void* b,
                                 const void* gamma, const void* beta, void* out, int N, int D,
                                 float eps, int dtype, int dropout, int seed, unsigned threshold,

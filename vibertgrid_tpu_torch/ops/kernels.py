@@ -30,7 +30,7 @@ SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "fused_ffn.cu", "fused_proj_ln.cu",
     "bertgrid_scatter.cu", "bertgrid_scatter_bwd.cu", "errors.cu",
 )
-HEADERS = ("common.cuh", "wgmma.cuh")
+HEADERS = ("common.cuh", "ffn_down_ln.cuh", "wgmma.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libvibertgrid_kernels.so"
@@ -59,8 +59,9 @@ _SIGNATURES = {
     "vg_fused_proj_ln": [_P] * 7 + [_I, _I, _F, _I, *_DROPOUT, _P],
     # emb, boxes, mask, out, B, S, row_bytes, height, width, stride, stream
     "vg_bertgrid_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # d_out, boxes, mask, d_emb, B, S, D, height, width, stride, dtype, stream
-    "vg_bertgrid_scatter_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # d_out, boxes, mask, d_emb, cells, offsets, partials, counters, B, S, D, height, width,
+    # stride, piece, dtype, stream
+    "vg_bertgrid_scatter_bwd": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

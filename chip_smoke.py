@@ -1095,14 +1095,8 @@ def attention_times(dev, tree):
         out = flash_attention(*leaves, bias, dh ** -0.5, nh, rate=rate, seed=DROP_SEED)
         run = lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)
         ms = _time_ms(run)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                run()
-            torch.cuda.synchronize()
-        parts = ", ".join(
-            f"{re.search(r'attention_bwd_[a-z]+', e.key).group()} "
-            f"{e.self_device_time_total / e.count / 1e3:.4f}"
-            for e in prof.key_averages() if "attention_bwd_" in e.key)
+        parts = ", ".join(f"{k} {kms:.4f}"
+                          for k, kms, _ in _kernel_ms_by_name(run, r"attention_bwd_[a-z]+"))
         return f"{ms:.4f} ({parts})"
 
     with torch.no_grad():
@@ -1144,13 +1138,8 @@ def ffn_times(dev, tree):
         times = {name: _time_ms(fn) for name, fn in runs.items()}
         twin = _time_ms(lambda: ffn_reference(x, *params, 1e-12), iters=5)
         for name, fn in runs.items():
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fn()
-                torch.cuda.synchronize()
-            parts += [f"{name}: {re.search(r'[a-z_]*ffn[a-z_]*<[^>]*>', e.key).group()} "
-                      f"{e.self_device_time_total / e.count / 1e3:.4f}"
-                      for e in prof.key_averages() if re.search(r'ffn[a-z_]*<', e.key)]
+            parts += [f"{name}: {k} {kms:.4f}"
+                      for k, kms, _ in _kernel_ms_by_name(fn, r"[a-z_]*ffn[a-z_]*<[^>]*>")]
         host = _host_us(runs, "vg_fused_ffn")
     chain = _ffn_chain_ms(x, params)
     print(f"FFN kernels of {tree}, N={x.shape[0]} D={d} F={f} bf16, device ms: "

@@ -27,22 +27,35 @@
 // 2. Sums (one block per piece of kPiece = 32 consecutive won cells of an
 //    image's list, its warps each taking 256 columns, so a page-wide segment
 //    is spread over H*W / 32 blocks and no block reads more than one piece).
-//    A block walks its piece in list order, every row read once with 16-byte
-//    loads coalesced along D, 16 rows in flight a lane, and sums each run of
-//    one segment in fp32 from 0. A segment that lies inside the piece is
-//    written out as it stands. One that crosses the piece's edge (the
-//    piece's first or last run) leaves its partial in scratch, [B, pieces,
-//    2, D] fp32; after __threadfence the block adds one to the segment's
-//    arrival counter, and the block that arrives last adds the segment's
-//    partials in piece order and writes the row. The sum is the same
-//    whichever block finishes first, so two runs give the same bits, with no
-//    float atomics (ops/grid_scatter.py::scatter_backward_pieces adds in the
-//    same order and agrees bit for bit).
+//    The pieces are numbered across the batch, so the blocks past the last
+//    one sit at the grid's end and leave at once. The launch is a
+//    programmatic dependent of launch 1: its blocks are placed while launch 1
+//    runs and wait for its results. A block loads its piece's cells beside
+//    the image's offsets, then walks the piece in list order, every row read
+//    once with 16-byte loads coalesced along D, eight rows in flight a lane,
+//    and sums each run of one segment in fp32 from 0. A segment that lies
+//    inside the piece is written out as it stands. One that crosses the
+//    piece's edge (the piece's first or last run) leaves its partial in
+//    scratch, [B, pieces, 2, D] fp32; after __threadfence the block adds one
+//    to the segment's arrival counter, and the block that arrives last adds
+//    the segment's partials in piece order (eight loads in flight) and
+//    writes the row. The sum is the same whichever block finishes first, so
+//    two runs give the same bits, with no float atomics
+//    (ops/grid_scatter.py::scatter_backward_pieces adds in the same order and
+//    agrees bit for bit).
 //
 // Bound on this card: bytes. Every won cell's row is read once and d_emb
 // written once: at the flagship batch (B=16, 64x48 cells, D=768, bf16, about
 // 350 won cells an image) 8.6 MB + 3.1 MB, 3.5 us at 3.35 TB/s; on a batch
 // whose every page is won (a page-wide box) 75.5 MB + 3.1 MB, 23 us.
+//
+// Measured (H100 80GB HBM3, 700 W; PERF.md has the runs): 0.062 ms a call on
+// the page-wide batch, where one block per segment took 0.63, and 0.022 ms on
+// the flagship batch, where it took 0.054. On the flagship batch the time is
+// latency: launch 1's chain of barriers and scans on one SM an image, the
+// wait for its results, then four dependent batches of row loads a block.
+// Variants that prefetched the rows into L2, kept 16 or 32 rows in flight
+// (fewer blocks an SM) or 16 partials in the combine were no faster.
 
 #include "common.cuh"
 
@@ -54,7 +67,7 @@ constexpr int kPiece = 32;               // cells a block of launch 2 sums: one 
 constexpr int kLaneCols = 8;             // columns a lane owns
 constexpr int kWarpCols = 32 * kLaneCols;
 constexpr int kMaxSumWarps = 8;          // a block of launch 2: up to 2048 columns a pass
-constexpr int kInFlight = 16;            // rows a lane loads before it adds them
+constexpr int kCombineInFlight = 8;      // partials a lane loads before it adds them
 
 // Largest i in [lo, hi) with a[i] <= v, for a[lo] <= v (a non-decreasing).
 __device__ __forceinline__ int last_at_most(const int* a, int lo, int hi, int v) {
@@ -107,6 +120,8 @@ scatter_bwd_cells_kernel(const int* __restrict__ boxes, const int* __restrict__ 
   int* cnt = win + n;
   int* offs = cnt + kCellWarps * keys;
   const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // launch 2 may be scheduled now; it waits for this grid's results
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   for (int s = tid; s < S; s += kCellThreads) {
     const int* bxp = boxes + ((size_t)b * S + s) * 4;
@@ -148,15 +163,19 @@ scatter_bwd_cells_kernel(const int* __restrict__ boxes, const int* __restrict__ 
   }
   __syncthreads();
   // Each (warp, key) count becomes the number of that key's cells in the
-  // warps before; offs[key + 1] holds the key's total for the scan.
-  for (int key = tid; key < keys; key += kCellThreads) {
-    int before = 0;
-    for (int w = 0; w < kCellWarps; ++w) {
-      const int c = cnt[w * keys + key];
-      cnt[w * keys + key] = before;
-      before += c;
+  // warps before (a scan across lane = warp); offs[key + 1] holds the key's
+  // total for the scan over keys.
+  static_assert(kCellWarps <= 32, "one lane a warp");
+  for (int key = warp; key < keys; key += kCellWarps) {
+    const int c = lane < kCellWarps ? cnt[lane * keys + key] : 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
     }
-    offs[key + 1] = before;
+    if (lane < kCellWarps) cnt[lane * keys + key] = incl - c;
+    if (lane == 31) offs[key + 1] = incl;
   }
   __syncthreads();
   if (warp == 0) warp_scan(offs + 1, offs, keys);
@@ -274,35 +293,28 @@ __device__ __forceinline__ void load_partial(float (&v)[kLaneCols], const float*
   }
 }
 
+// Piece `piece` of image b: the walk, then the crossing runs. Every thread of
+// the block calls it (block barriers inside); offs holds image b's offsets
+// and my_cell the cell at list position piece * kPiece + lane.
 template <typename T>
-__global__ void __launch_bounds__(kMaxSumWarps * 32)
-scatter_bwd_sum_kernel(const T* __restrict__ d_out, const int* __restrict__ cells,
-                       const int* __restrict__ offsets, T* __restrict__ d_emb,
-                       float* __restrict__ partials, int* __restrict__ counters, int S, int D,
-                       int n, int pieces) {
-  extern __shared__ int offs[];  // [S + 1]: the image's segment starts, offs[S] = won cells
-  __shared__ int finish[2];      // this block adds up the first / last run's segment
-  const int b = blockIdx.y, piece = blockIdx.x;
-  const int* img_offsets = offsets + (size_t)b * (S + 2);
-  const int start = piece * kPiece, won = img_offsets[S];
-  if (start >= won) return;  // the whole block: past this image's won cells
-  for (int i = threadIdx.x; i <= S; i += blockDim.x) offs[i] = img_offsets[i];
-  __syncthreads();
-
-  const int count = min(kPiece, won - start), end = start + count;
+__device__ __forceinline__ void sum_piece(const T* __restrict__ d_out, const int* offs,
+                                          int my_cell, T* __restrict__ d_emb,
+                                          float* __restrict__ partials, int* __restrict__ counters,
+                                          int* finish, int b, int piece, int S, int D, int n,
+                                          int pieces) {
+  constexpr int kInFlight = 8;  // rows a lane loads before it adds them
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  int my_cell = 0, my_seg = 0;  // list position start + lane
-  if (lane < count) {
-    my_cell = cells[(size_t)b * n + start + lane];
-    my_seg = last_at_most(offs, 0, S, start + lane);
-  }
+  const int start = piece * kPiece, count = min(kPiece, offs[S] - start), end = start + count;
+  const T* grid = d_out + (size_t)b * n * D;
+  int my_seg = 0;
+  if (lane < count) my_seg = last_at_most(offs, 0, S, start + lane);
+  else my_cell = 0;
   const int first = __shfl_sync(0xffffffffu, my_seg, 0);
   const int last = __shfl_sync(0xffffffffu, my_seg, count - 1);
   const auto crosses = [&](int s) { return offs[s] < start || offs[s + 1] > end; };
   // A crossing run's partial: slot 0 for the piece's first run, 1 for its last.
   float* piece_part = partials + ((size_t)b * pieces + piece) * 2 * D;
 
-  const T* grid = d_out + (size_t)b * n * D;
   const bool aligned = D % kLaneCols == 0;
   for (int c0 = warp * kWarpCols; c0 < D; c0 += warps * kWarpCols) {
     const int col = c0 + lane * kLaneCols, left = D - col;
@@ -340,8 +352,9 @@ scatter_bwd_sum_kernel(const T* __restrict__ d_out, const int* __restrict__ cell
   }
 
   // The crossing runs: the last block to leave its partial adds them all up.
+  if (!crosses(first) && !crosses(last)) return;  // the whole block
   __threadfence();
-  __syncthreads();
+  __syncthreads();  // every partial of this piece is out; `finish` is free
   if (threadIdx.x < 2) {
     const int s = threadIdx.x == 0 ? first : last;
     bool mine = crosses(s) && (threadIdx.x == 0 || last != first);
@@ -364,16 +377,57 @@ scatter_bwd_sum_kernel(const T* __restrict__ d_out, const int* __restrict__ cell
       if (left <= 0) continue;
       const bool vec = aligned && left >= kLaneCols;
       float acc[kLaneCols] = {};
-      for (int j = j0; j <= j1; ++j) {
-        float v[kLaneCols];
-        const int slot = j == j0 ? slot0 : 0;
-        load_partial(v, partials + (((size_t)b * pieces + j) * 2 + slot) * D + col, left, vec);
+      for (int j_0 = j0; j_0 <= j1; j_0 += kCombineInFlight) {
+        float v[kCombineInFlight][kLaneCols];
 #pragma unroll
-        for (int e = 0; e < kLaneCols; ++e) acc[e] += v[e];
+        for (int u = 0; u < kCombineInFlight; ++u) {
+          const int j = j_0 + u, slot = j == j0 ? slot0 : 0;
+          if (j <= j1)
+            load_partial(v[u], partials + (((size_t)b * pieces + j) * 2 + slot) * D + col, left,
+                         vec);
+        }
+#pragma unroll
+        for (int u = 0; u < kCombineInFlight; ++u)
+          if (j_0 + u <= j1)
+#pragma unroll
+            for (int e = 0; e < kLaneCols; ++e) acc[e] += v[u][e];
       }
       store8(d_emb + ((size_t)b * S + s) * D + col, acc, left, vec);
     }
   }
+}
+
+// One block per piece. The batch's pieces are numbered image after image
+// (image b's are first[b] .. first[b + 1]), so the blocks with work come
+// first in the grid and those past the batch's last piece, at its end, leave
+// at once; no block is spent on an image's empty tail in the middle.
+template <typename T>
+__global__ void __launch_bounds__(kMaxSumWarps * 32)
+scatter_bwd_sum_kernel(const T* __restrict__ d_out, const int* __restrict__ cells,
+                       const int* __restrict__ offsets, T* __restrict__ d_emb,
+                       float* __restrict__ partials, int* __restrict__ counters, int B, int S,
+                       int D, int n, int pieces) {
+  extern __shared__ int sm2[];
+  int* offs = sm2;            // [S + 1]: the image's segment starts, won cells last
+  int* first = offs + S + 1;  // [B + 1]: the images' first pieces in the batch's count
+  __shared__ int finish[2];   // this block adds up the first / last run's segment
+  // launch 1 may still run until here (programmatic dependent launch)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  for (int i = threadIdx.x; i < B; i += blockDim.x)
+    first[i + 1] = (offsets[(size_t)i * (S + 2) + S] + kPiece - 1) / kPiece;
+  __syncthreads();
+  if (threadIdx.x < 32) warp_scan(first + 1, first, B);
+  __syncthreads();
+  const int item = blockIdx.x;
+  if (item >= first[B]) return;  // the whole block
+  const int b = last_at_most(first, 0, B, item), piece = item - first[b];
+  // the piece's cells (the list has n entries; those past the won cells are
+  // not used) beside the image's offsets
+  const int pos = piece * kPiece + (threadIdx.x & 31);
+  const int my_cell = pos < n ? cells[(size_t)b * n + pos] : 0;
+  for (int i = threadIdx.x; i <= S; i += blockDim.x) offs[i] = offsets[(size_t)b * (S + 2) + i];
+  __syncthreads();
+  sum_piece(d_out, offs, my_cell, d_emb, partials, counters, finish, b, piece, S, D, n, pieces);
 }
 
 template <typename T>
@@ -392,10 +446,24 @@ cudaError_t launch(const void* d_out, const int* boxes, const int* mask, void* d
   scatter_bwd_cells_kernel<T><<<B, kCellThreads, cell_smem, stream>>>(
       boxes, mask, cells, offsets, static_cast<T*>(d_emb), counters, S, D, height, width, stride);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int warps = min(kMaxSumWarps, (D + kWarpCols - 1) / kWarpCols);
-  scatter_bwd_sum_kernel<T><<<dim3(pieces, B), 32 * warps, (S + 1) * sizeof(int), stream>>>(
-      static_cast<const T*>(d_out), cells, offsets, static_cast<T*>(d_emb), partials, counters,
-      S, D, n, pieces);
+
+  const int threads = 32 * min(kMaxSumWarps, (D + kWarpCols - 1) / kWarpCols);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * pieces);  // every piece the batch could have
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)(S + 1 + B + 1) * sizeof(int);
+  cfg.stream = stream;
+  // it may start while launch 1 finishes; it waits for launch 1's results
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, scatter_bwd_sum_kernel<T>, static_cast<const T*>(d_out),
+                                static_cast<const int*>(cells), static_cast<const int*>(offsets),
+                                static_cast<T*>(d_emb), partials, counters, B, S, D, n,
+                                pieces)) != cudaSuccess)
+    return err;
   return cudaGetLastError();
 }
 

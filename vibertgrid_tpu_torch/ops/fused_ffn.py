@@ -18,7 +18,9 @@
 On CUDA tensors the FFN forwards launch ``csrc/fused_ffn.cu`` (in bf16 at
 D = 768 two kernels a call: an up-projection with gelu into an ``[N, F]``
 scratch, then the down-projection with the residual LayerNorm) and the
-epilogue ``csrc/fused_proj_ln.cu``; on CPU tensors they run
+epilogue ``csrc/fused_proj_ln.cu`` (in bf16 at D = 768 that same
+down-projection kernel with the context as ``h`` and K = 768, one launch a
+call); on CPU tensors they run
 :func:`ffn_reference`, :func:`ffn_saved_reference` (the composition of
 :func:`ffn_up_reference` and :func:`ffn_down_ln_reference`) and
 :func:`proj_ln_reference`, the plain versions the kernels are held against.
@@ -331,13 +333,10 @@ def proj_ln_reference(ctx, res, w, b, ln_scale, ln_bias, eps: float, seed: int =
     over rows of ``ctx``, ``res`` ``[N, D]`` in the compute dtype, W ``[D, D]``
     in ``nn.Linear`` layout cast to it; the product accumulates in fp32, and
     bias, dropout (flat index ``row·D + col``), residual and LayerNorm
-    (variance E[x²]−E[x]²) are fp32."""
-    dt = ctx.dtype
-    out = ctx.float() @ w.to(dt).float().t() + b.float()
-    if rate > 0.0:
-        out = _dropout(out, seed, rate)
-    yhat, _ = _ln_stats(res.float() + out, eps)
-    return (yhat * ln_scale.float() + ln_bias.float()).to(dt)
+    (variance E[x²]−E[x]²) are fp32: :func:`ffn_down_ln_reference`'s ``y``
+    with ``h = ctx``, ``x = res`` and ``W2 = W``, as the kernel is the
+    down-projection's."""
+    return ffn_down_ln_reference(ctx, res, w, b, ln_scale, ln_bias, eps, seed, rate)[0]
 
 
 def _launch_proj_ln(ctx, res, w, b, ln_scale, ln_bias, eps, seed, rate):

@@ -162,6 +162,8 @@ def _backward(d_out, boxes, box_mask, stride, lists=None):
 class _GridScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, embeddings, boxes, box_mask, height, width, stride):
+        # int32 as both kernels take them, so the backward converts nothing
+        boxes, box_mask = _prepare(boxes, box_mask)
         ctx.save_for_backward(boxes, box_mask)
         ctx.stride = stride
         return _forward(embeddings.contiguous(), boxes, box_mask, height, width, stride)

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
+    python3 chip_smoke.py --only serve      # build, then serving steps 1-5 alone
     python3 chip_smoke.py --only attention [--tree DIR]   # build, then time kernels 1 and 4
     python3 chip_smoke.py --only ffn [--tree DIR]         # build, then time kernels 2 and 5
     python3 chip_smoke.py --only proj_ln [--tree DIR]     # build, then time kernel 7
@@ -44,11 +45,30 @@
 7. runs the inference forward and one train step in fp32 at batch 2 on the
    card (kernels) and on the host CPU (twins) from one set of weights and
    the same seeds, for the flagship and for the full-head model with the
-   fused epilogue, and the CRF decode, and compares them.
+   fused epilogue, and the CRF decode, and compares them;
+8. serves at the width of ``vibertgrid_tpu_torch/configs/deployment_sroie.yaml``
+   (BERT-base-uncased, ResNet-34-FPN, simplified head, bf16, short edge 512,
+   long edge at most 800) through ``InferenceEngine`` and ``BatchingEngine``
+   on numpy pages and the synthetic vocabulary: (1) ``predict`` of one
+   document of 128 segments, timed, with its dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")``, and an empty-OCR request;
+   (2) ``predict_many`` of 1, 2, 4 and 16 documents, the 16's device time and
+   the host's collate on its own; (3) a ragged batch of 3 documents padded to
+   4, one of two windows (T = 1020, S bucket 256), and one of S = 512; (4)
+   ``predict_stream`` of 64 documents against serial ``predict_many``; (5)
+   ``BatchingEngine`` under 8 client threads, each answer against the
+   request's own ``predict``; each with the launches of a forward asserted
+   (attention 12, FFN 12, saved-residual FFN 0, scatter 1); then (6) the
+   uint8 wire against the fp32 wire, (7) fp32 card against host at batch 2
+   with the two-window document, (8) kernel 3 bit for bit against its twin on
+   the serving batches' boxes (S = 256 on an 832 x 512 canvas, S = 512) and
+   (9) the HTTP front: ``serve()`` with a stub OCR service on localhost,
+   three POSTs answered as ``predict``.
 
 ``--only flagship`` is for comparing two trees on one card: run it from each
 tree's root in turns (parent, change, change, parent) in one shell command and
-read the two lines "flagship forward" and "flagship train step". ``--only
+read the two lines "flagship forward" and "flagship train step"; ``--only
+serve`` likewise runs step 8's parts (1) to (5) alone. ``--only
 attention`` does the same for the two attention kernels alone, through the
 package's public ``flash_attention`` only, so ``--tree DIR`` can point this
 script at another checkout's package (an earlier commit unpacked under a
@@ -74,6 +94,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -1074,6 +1095,412 @@ def fp32_train_card_vs_host(dev, config, what, names):
             raise AssertionError(f"fp32 train step ({what}): gradient of {name} differs by {err}")
 
 
+# ---- the serving path ----
+
+# vibertgrid_tpu_torch/configs/deployment_sroie.yaml as a dict, so that the
+# serving phase needs no YAML reader (tests/test_torch_data.py holds them equal)
+DEPLOYMENT_HYP = {
+    "ocr_url": "http://127.0.0.1:8010/ocr",
+    "parse_mode": "eng_line",
+    "weights": "",
+    "reference_weights": "",
+    "num_classes": 5,
+    "bert_version": "bert-base-uncased",
+    "tokenizer_path": None,
+    "backbone": "resnet_34_fpn_pretrained",
+    "classifier_mode": "simp",
+    "layer_mode": "single",
+    "grid_mode": "mean",
+    "early_fusion_downsampling_ratio": 8,
+    "roi_shape": 7,
+    "p_fuse_downsampling_ratio": 4,
+    "late_fusion_fuse_embedding_channel": 1024,
+    "amp": True,
+    "image_mean": [0.9248, 0.9224, 0.9215],
+    "image_std": [0.1532, 0.1545, 0.1536],
+    "image_min_size": [512],
+    "test_image_min_size": 512,
+    "image_max_size": 800,
+}
+SERVE_LAUNCHES = dict(flash_attention=12, flash_attention_bwd=0, fused_ffn=12, fused_ffn_saved=0,
+                      fused_proj_ln=0, bertgrid_scatter=1, bertgrid_scatter_bwd=0)
+# Two answers to one request that the card computed in batches of other
+# shapes (or over the two wires) are compared as tests/test_serve.py compares
+# the wires: the class probabilities within WIRE_PROB_TOL, the fields equal
+# unless some segment's top-2 margin is within twice the measured difference.
+WIRE_PROB_TOL = 0.05
+A4, TALL = (1100, 850), (1250, 800)  # pages resized to 662x512 and 800x512
+
+
+class _VocabTokenizer:
+    """Whitespace split and a lookup in the synthetic vocabulary: the
+    tokenizer where ``transformers`` is not installed."""
+
+    def __init__(self, vocab):
+        self.ids = {w: i for i, w in enumerate(vocab)}
+        self.cls_token_id, self.sep_token_id = self.ids["[CLS]"], self.ids["[SEP]"]
+
+    def tokenize(self, text):
+        return text.lower().split()
+
+    def convert_tokens_to_ids(self, tokens):
+        return [self.ids.get(t, self.ids["[UNK]"]) for t in tokens]
+
+
+def _serve_tokenizer(directory):
+    from vibertgrid_tpu_torch.data.synthetic import VOCAB, write_vocab
+
+    try:
+        from transformers import BertTokenizer
+    except ImportError:
+        return _VocabTokenizer(VOCAB)
+    return BertTokenizer(write_vocab(directory), do_lower_case=True)
+
+
+def _serve_request(seed: int, n_seg: int, words=(1, 4), hw=A4):
+    """A page of ``n_seg`` OCR segments of the synthetic vocabulary's words,
+    set in lines of boxes, each box shaded."""
+    import numpy as np
+
+    from vibertgrid_tpu_torch.data.synthetic import CLASS_WORDS
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    image = np.full((h, w, 3), 0.95, np.float32)
+    vocab = [x for ws in CLASS_WORDS.values() for x in ws] + [str(i) for i in range(10)]
+    per_line = -(-n_seg // ((h - 20) // 14))
+    texts, boxes = [], []
+    for i in range(n_seg):
+        texts.append(" ".join(rng.choice(vocab, int(rng.integers(*words)))))
+        x0 = 10 + (i % per_line) * ((w - 20) // per_line)
+        y0 = 10 + (i // per_line) * 14
+        box = [x0, y0, x0 + int(rng.integers(8, (w - 20) // per_line)), y0 + 11]
+        image[box[1]:box[3], box[0]:box[2]] = rng.uniform(0.1, 0.8)
+        boxes.append(box)
+    return image, texts, boxes
+
+
+def _scores(engine, requests):
+    """Each request's class probabilities ``[n_seg, C]`` from one batch."""
+    pred, aux, _, keep = engine._dispatch(requests)
+    pred = pred.float().cpu()
+    return {i: pred[row, :aux.n_segments[row]] for row, i in enumerate(keep)}
+
+
+def _agree(what, got, want, got_scores, want_scores, tol=WIRE_PROB_TOL):
+    """Answers ``got`` against ``want`` under the wire rule above."""
+    delta = max(((got_scores[i] - want_scores[i]).abs().max().item() for i in want_scores),
+                default=0.0)
+    differ = [i for i in range(len(want)) if got[i] != want[i]]
+    near = []
+    for i in differ:
+        top2 = want_scores[i].topk(2, dim=-1).values
+        near.append((top2[:, 0] - top2[:, 1]).min().item())
+    print(f"{what}: {len(want) - len(differ)} of {len(want)} answers equal, max |probability "
+          f"difference| {delta:.3e} (tol {tol}); the others' least top-2 margins "
+          f"{[round(m, 5) for m in near]}")
+    if not delta <= tol or any(m > 2 * delta for m in near):
+        raise AssertionError(f"{what}: answers differ beyond a near tie")
+
+
+def _median_s(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _counted(engine, formed):
+    """Wrap ``engine._dispatch`` so that each formed batch records its
+    requests, its prediction and the launches it made."""
+    from vibertgrid_tpu_torch.ops import kernels
+
+    dispatch = engine._dispatch
+
+    def counted(requests):
+        before = dict(kernels.LAUNCHES)
+        out = dispatch(requests)
+        formed.append((requests, out,
+                       {k: kernels.LAUNCHES[k] - before[k] for k in before}))
+        return out
+
+    engine._dispatch = counted
+
+
+def serve_engine(dev, hyp=DEPLOYMENT_HYP, **kw):
+    import tempfile
+
+    from vibertgrid_tpu_torch.serve.engine import InferenceEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tokenizer = _serve_tokenizer(tmp)
+    return InferenceEngine(hyp, tokenizer=tokenizer, device=dev, **kw)
+
+
+def serving(dev, records, full: bool = True):
+    """The serving path at the deployment config's width (bf16), steps 1-5;
+    with ``full`` also 6-9: the wires, fp32 card against host, kernel 3 at
+    the serving shapes, the HTTP front."""
+    import numpy as np
+
+    from vibertgrid_tpu_torch.ops import kernels
+    from vibertgrid_tpu_torch.serve.batching import BatchingEngine
+
+    t_phase = time.perf_counter()
+    engine = serve_engine(dev)
+    pages = [_serve_request(i, 128) for i in range(16)]  # one window each
+    long_doc = _serve_request(100, 200, words=(3, 6), hw=TALL)  # 2 windows, S 256
+    wide_doc = _serve_request(101, 400, words=(1, 2), hw=TALL)  # S 512
+    n_tok = lambda req: sum(len(engine.tokenizer.tokenize(t)) for t in req[1])
+    if not (max(map(n_tok, pages)) <= 510 < 700 <= n_tok(long_doc) <= 1020):
+        raise AssertionError("serving documents: token counts off their windows")
+
+    # 1. single requests; the dispatch reads nothing back from the card
+    one = pages[0]
+    engine.predict(*one)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = engine._dispatch([one])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    engine._finish(*pending)
+    kernels.reset_launch_counts()
+    want_one = engine.predict(*one)
+    _assert_launches(records, dict(kernels.LAUNCHES), SERVE_LAUNCHES, "serving predict")
+    single_s = _median_s(lambda: engine.predict(*one), 10)
+    empty = engine.predict(one[0], [], np.zeros((0, 4), np.int32))
+    if empty != {c: "" for c in engine.spec.class_list[1:]}:
+        raise AssertionError(f"empty OCR answered {empty}")
+    print(f"serving predict, 1 document, 128 segments, {n_tok(one)} tokens, canvas "
+          f"{engine.collator([engine._make_sample(*one)], False)[0].images.shape[1:3]}: "
+          f"{single_s * 1e3:.2f} ms (median of 10, host clock); answer {want_one}")
+
+    # 2. predict_many at 1, 2, 4, 16; the 16-document call's device time; the
+    # host's collate on its own
+    rates = {}
+    for n in (1, 2, 4, 16):
+        reqs = pages[:n]
+        engine.predict_many(reqs)
+        s = _median_s(lambda: engine.predict_many(reqs), 5 if n == 16 else 10)
+        rates[n] = (s * 1e3, n / s)
+    print("serving predict_many, ms a call and docs/s: "
+          + ", ".join(f"{n} docs {ms:.2f} ms {r:.1f} docs/s" for n, (ms, r) in rates.items()))
+    tokenize_s = _median_s(lambda: [engine._make_sample(*r) for r in pages], 3)
+    samples = [engine._make_sample(*r) for r in pages]
+    collate_s = _median_s(lambda: engine.collator(samples, train=False), 3)
+    print(f"serving host collate of 16 documents: tokenize {tokenize_s * 1e3:.2f} ms, resize and "
+          f"pad {collate_s * 1e3:.2f} ms, together {100 * (tokenize_s + collate_s) / (rates[16][0] / 1e3):.1f}% "
+          f"of the predict_many call")
+    _device_time_table(lambda: engine.predict_many(pages), rates[16][0] / 1e3,
+                       "one predict_many of 16 documents")
+
+    # 3. a ragged batch: 3 documents padded to 4, one of two windows and 200
+    # segments (T = 1020, S bucket 256) on the tallest canvas
+    ragged = [pages[1], long_doc, pages[2]]
+    kernels.reset_launch_counts()
+    pred, aux, _, _ = engine._dispatch(ragged)
+    torch.cuda.synchronize()
+    _assert_launches(records, dict(kernels.LAUNCHES), SERVE_LAUNCHES, "serving ragged batch")
+    batch, _ = engine.collator([engine._make_sample(*r) for r in ragged], train=False)
+    print(f"serving ragged batch: prediction {tuple(pred.shape)}, tokens {batch.tokens.shape}, "
+          f"canvas {batch.images.shape[1:3]}; launches as for one window (the windows of the "
+          f"batch go through each kernel in one launch)")
+    if pred.shape[:2] != (4, 256) or batch.tokens.shape[1] != 1020:
+        raise AssertionError("ragged batch: unexpected shapes")
+    if not bool(torch.isfinite(pred).all()):
+        raise AssertionError("ragged batch: scores not finite")
+    engine.predict_many([wide_doc])  # S bucket 512
+
+    # 4. predict_stream against serial predict_many
+    stream = [pages[i % 16] for i in range(64)]
+    engine.predict_stream(stream[:32], batch_size=16, depth=2)
+    t0 = time.perf_counter()
+    streamed = engine.predict_stream(stream, batch_size=16, depth=2)
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = [a for i in range(0, 64, 16) for a in engine.predict_many(stream[i:i + 16])]
+    serial_s = time.perf_counter() - t0
+    if streamed != serial:
+        raise AssertionError("predict_stream answers differ from serial predict_many")
+    print(f"serving predict_stream of 64 documents, batch 16, depth 2: {64 / stream_s:.1f} docs/s; "
+          f"serial predict_many: {64 / serial_s:.1f} docs/s; answers equal")
+
+    # 5. BatchingEngine: 8 client threads x 4 requests
+    # 32 requests over the 16 pages, each with its own list of texts, by
+    # which its row in a formed batch is found
+    reqs = [(p[0], list(p[1]), p[2]) for p in (pages[(3 * i) % 16] for i in range(32))]
+    formed = []
+    _counted(engine, formed)
+    front = BatchingEngine(engine, max_batch=8, max_wait_ms=5)
+    try:
+        front.predict(*reqs[0])
+        formed.clear()
+        results = [None] * len(reqs)
+
+        def client(k):
+            for j in range(k, len(reqs), 8):
+                results[j] = front.predict(*reqs[j])
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        batching_s = time.perf_counter() - t0
+    finally:
+        front.close()
+        del engine._dispatch
+    sizes = [len(r) for r, _, _ in formed]
+    for _, _, launches in formed:
+        _assert_launches(records, launches, SERVE_LAUNCHES, "BatchingEngine batch")
+    alone = {i: engine.predict(*reqs[i]) for i in range(len(reqs))}
+    got_scores, want_scores, row_of = {}, {}, {}
+    for requests, (pred, _, _, keep), _ in formed:
+        pred = pred.float().cpu()
+        for row, req in zip(keep, requests):
+            row_of[id(req[1])] = pred[row]
+    for i, req in enumerate(reqs):
+        want_scores[i] = _scores(engine, [req])[0]
+        got_scores[i] = row_of[id(req[1])][:want_scores[i].shape[0]]
+    _agree("BatchingEngine answers vs predict", results, [alone[i] for i in range(len(reqs))],
+           got_scores, want_scores)
+    print(f"BatchingEngine, 8 threads x 4 requests, max_batch 8, max_wait_ms 5: "
+          f"{len(reqs) / batching_s:.1f} docs/s, batches formed {sizes}")
+    if not full:
+        print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+        return
+
+    # 6. the uint8 wire against the fp32 wire
+    fp32_wire = serve_engine(dev, dict(DEPLOYMENT_HYP, serve_uint8_upload=False),
+                             state=engine.model.state_dict())
+    wire_reqs = [pages[0], long_doc, pages[3]]
+    _agree("uint8 wire vs fp32 wire", engine.predict_many(wire_reqs),
+           fp32_wire.predict_many(wire_reqs), _scores(engine, wire_reqs),
+           _scores(fp32_wire, wire_reqs))
+    del fp32_wire
+
+    # 7. fp32, card against host, batch 2 with the two-window document
+    fp32_hyp = dict(DEPLOYMENT_HYP, amp=False)
+    card = serve_engine(dev, fp32_hyp, state=engine.model.state_dict())
+    host = serve_engine("cpu", fp32_hyp, state=engine.model.state_dict())
+    pair = [pages[4], long_doc]
+    got, want = _scores(card, pair), _scores(host, pair)
+    err = max((got[i] - want[i]).abs().max().item() for i in want)
+    same = card.predict_many(pair) == host.predict_many(pair)
+    print(f"fp32 serving B=2 (T = 1020), card vs host: max |diff| {err:.3e} (tol "
+          f"{FP32_FORWARD_ATOL}), answers equal: {same}")
+    if not (err <= FP32_FORWARD_ATOL and same):
+        raise AssertionError("fp32 serving: card differs from host")
+    del card, host
+
+    # 8. kernel 3 against its twin at the serving shapes
+    check_scatter_serving(dev, engine, ragged, wide_doc)
+
+    # 9. the HTTP front
+    http_round_trip(engine, pages[5:8])
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_scatter_serving(dev, engine, ragged, wide_doc):
+    """Kernel 3 bit for bit against its twin on the boxes the serving batches
+    collated: S = 256 on the ragged batch's 832 x 512 canvas, S = 512."""
+    from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter
+    from vibertgrid_tpu_torch.ops.rasterize import bertgrid_scatter
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    for reqs in (ragged, [wide_doc]):
+        batch, _ = engine.collator([engine._make_sample(*r) for r in reqs], train=False)
+        boxes = torch.from_numpy(batch.boxes).to(dev)
+        mask = torch.from_numpy(batch.box_mask).to(dev)
+        b, s = mask.shape
+        h, w = batch.images.shape[1:3]
+        emb = torch.randn(b, s, 768, generator=g, device=dev).bfloat16()
+        kw = dict(height=h // 8, width=w // 8, stride=8)
+        got, want = grid_scatter(emb, boxes, mask, **kw), bertgrid_scatter(emb, boxes, mask, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"bertgrid_scatter at S={s}: kernel differs from twin")
+        ms = _time_ms(lambda: grid_scatter(emb, boxes, mask, **kw))
+        print(f"bertgrid_scatter at serving shape B={b} S={s} grid {h // 8}x{w // 8}: bit-equal to "
+              f"its twin, {ms:.4f} ms")
+
+
+def http_round_trip(engine, requests):
+    """``serve()`` on localhost with a stub OCR service: one POST to
+    ``/core`` a request, its PNG page; the answers equal ``predict`` on the
+    decoded page and the OCR segments."""
+    import io
+    import urllib.request
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    import numpy as np
+    from PIL import Image
+
+    from vibertgrid_tpu_torch.serve.app import serve
+
+    ocr_reply = {}
+
+    class StubOcr(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802
+            self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            body = json.dumps(ocr_reply["api"]).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    ocr = ThreadingHTTPServer(("127.0.0.1", 0), StubOcr)
+    threading.Thread(target=ocr.serve_forever, daemon=True).start()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    engine.ocr_url = f"http://127.0.0.1:{ocr.server_address[1]}/ocr"
+    threading.Thread(target=serve, args=(engine,), kwargs={"port": port}, daemon=True).start()
+    times = []
+    try:
+        for image, texts, boxes in requests:
+            # eng_line reads corners 0, 1 and 2, 5 of each line's position
+            ocr_reply["api"] = {"code": 200, "result": {"lines": [
+                {"text": t, "position": [x0, y0, x1, y0, x1, y1, x0, y1], "char_positions": []}
+                for t, (x0, y0, x1, y1) in zip(texts, boxes)]}}
+            pixels = np.rint(image * 255).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(pixels).save(buf, format="PNG")
+            body = (b'--b\r\nContent-Disposition: form-data; name="file"; filename="p.png"\r\n'
+                    b"Content-Type: image/png\r\n\r\n" + buf.getvalue() + b"\r\n--b--\r\n")
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/core", data=body,
+                                         headers={"Content-Type": 'multipart/form-data; boundary="b"'})
+            deadline = time.time() + 30
+            while True:
+                try:
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        answer = json.loads(r.read())
+                    times.append(time.perf_counter() - t0)
+                    break
+                except OSError:
+                    if time.time() > deadline:
+                        raise
+                    time.sleep(0.2)
+            want = engine.predict(pixels.astype(np.float32) / 255.0, texts, boxes)
+            if answer != {"result": want}:
+                raise AssertionError(f"HTTP answer {answer} differs from predict {want}")
+    finally:
+        ocr.shutdown()
+        engine.ocr_url = DEPLOYMENT_HYP["ocr_url"]
+    print(f"HTTP /core round trip with a stub OCR service: {len(requests)} POSTs answered as "
+          f"predict, {', '.join(f'{t * 1e3:.1f}' for t in times)} ms each (the first includes "
+          f"the server's start)")
+
+
 def attention_times(dev, tree):
     """Device time of the attention forward and backward at the flagship
     shape, with and without dropout, beside the twin's and the library
@@ -1278,8 +1705,8 @@ def main(argv) -> int:
     kernel_modes = [["--only", mode] for mode in KERNEL_MODES]
     if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
-    if argv not in ([], ["--only", "flagship"], *kernel_modes):
-        print("usage: python3 chip_smoke.py [--only flagship | --only "
+    if argv not in ([], ["--only", "flagship"], ["--only", "serve"], *kernel_modes):
+        print("usage: python3 chip_smoke.py [--only flagship | --only serve | --only "
               f"{'|'.join(KERNEL_MODES)} [--tree DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1307,6 +1734,10 @@ def main(argv) -> int:
         KERNEL_MODES[argv[1]](dev, tree)
         print(smi)
         return 0
+    if argv == ["--only", "serve"]:  # serving steps 1-5, for comparing trees
+        serving(dev, [], full=False)
+        print(smi)
+        return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees
         flagship_forward(dev, [])
         flagship_train(dev, [])
@@ -1330,6 +1761,7 @@ def main(argv) -> int:
         ("bert_model.layer.0.attention.out.weight", "field_type_head.pos_neg_net.out.weight",
          "semantic_segmentation_head.binary_bank.weight"))
     fp32_crf_decode_card_vs_host(dev)
+    serving(dev, records)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

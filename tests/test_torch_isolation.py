@@ -42,9 +42,12 @@ def _port_files():
 
 def test_scan_covers_every_sub_package():
     scanned = {p.relative_to(PORT).parts[0] for p in _port_files() if p.is_relative_to(PORT)}
-    assert {"models", "ops", "train", "entry.py", "convert.py"} <= scanned
+    assert {"models", "ops", "train", "data", "eval", "serve", "entry.py",
+            "convert.py"} <= scanned
     assert {PORT / "train" / "state.py", PORT / "train" / "checkpoint.py",
-            PORT / "ops" / "crf.py"} <= set(_port_files())
+            PORT / "ops" / "crf.py", PORT / "train" / "driver.py",
+            PORT / "models" / "convert_reference.py", PORT / "serve" / "engine.py",
+            PORT / "data" / "transform.py", PORT / "eval" / "entities.py"} <= set(_port_files())
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -69,6 +72,36 @@ def test_port_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_serve_import_leaves_jax_and_transformers_unloaded():
+    code = (
+        "import sys\n"
+        "import vibertgrid_tpu_torch.serve, vibertgrid_tpu_torch.data\n"
+        "import vibertgrid_tpu_torch.eval, vibertgrid_tpu_torch.train.driver\n"
+        "import vibertgrid_tpu_torch.models.convert_reference\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('transformers',)!r}]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_inference_engine_defaults_to_cuda_and_raises_without_it():
+    from vibertgrid_tpu_torch.serve.engine import InferenceEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    hyp = {"num_classes": 5, "bert_version": "tiny-bert-test", "backbone": "resnet_18_fpn"}
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceEngine(hyp, tokenizer=object())
+    from vibertgrid_tpu_torch.train.driver import build_all
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_all(hyp, "sroie")
 
 
 def test_entry_defaults_to_cuda_and_raises_without_it():

@@ -87,20 +87,34 @@ class CheckpointManager:
         return max(entries, key=lambda e: float(e.rsplit("_", 1)[-1]))
 
 
-def restore_checkpoint(path: str, state: TrainState) -> tuple[TrainState, dict]:
-    """Restore the checkpoint directory ``path`` into ``state`` in place;
-    returns ``(state, meta)``. The entry point for a caller that holds a whole
-    checkpoint path and no checkpoint root."""
+def _read(path: str, model: torch.nn.Module) -> tuple[dict, dict]:
+    """``(payload, meta)`` of the checkpoint directory ``path``, the tensors
+    on ``model``'s device, and its model state loaded into ``model``."""
     path = os.path.abspath(path)
     meta: dict = {"epoch": 0, "f1": 0.0}
     meta_path = os.path.join(path, _META_FILE)
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta.update(json.load(f))
-    device = next(state.model.parameters()).device
+    device = next(model.parameters()).device
     payload = torch.load(os.path.join(path, _STATE_FILE), map_location=device,
                          weights_only=True)
-    state.model.load_state_dict(payload["model"], strict=True)
+    model.load_state_dict(payload["model"], strict=True)
+    return payload, meta
+
+
+def restore_model(path: str, model: torch.nn.Module) -> dict:
+    """Restore only the model (parameters and BatchNorm statistics) of the
+    checkpoint directory ``path`` into ``model`` in place, for a caller with
+    no optimizer (the serving engine); returns the metadata."""
+    return _read(path, model)[1]
+
+
+def restore_checkpoint(path: str, state: TrainState) -> tuple[TrainState, dict]:
+    """Restore the checkpoint directory ``path`` into ``state`` in place;
+    returns ``(state, meta)``. The entry point for a caller that holds a whole
+    checkpoint path and no checkpoint root."""
+    payload, meta = _read(path, state.model)
     saved = payload["optimizer"]
     state.optimizer.load_named_state(state.model.named_parameters(), saved["slots"],
                                      saved["count"])

@@ -1180,11 +1180,13 @@ def _serve_request(seed: int, n_seg: int, words=(1, 4), hw=A4):
     return image, texts, boxes
 
 
-def _scores(engine, requests):
-    """Each request's class probabilities ``[n_seg, C]`` from one batch."""
-    pred, aux, _, keep = engine._dispatch(requests)
+def _answers(engine, requests):
+    """``(answers, {request: class probabilities [n_seg, C]})`` of one batch."""
+    pending = engine._dispatch(requests)
+    pred, aux, _, keep = pending
     pred = pred.float().cpu()
-    return {i: pred[row, :aux.n_segments[row]] for row, i in enumerate(keep)}
+    scores = {i: pred[row, :aux.n_segments[row]] for row, i in enumerate(keep)}
+    return engine._finish(*pending), scores
 
 
 def _agree(what, got, want, got_scores, want_scores, tol=WIRE_PROB_TOL):
@@ -1201,6 +1203,14 @@ def _agree(what, got, want, got_scores, want_scores, tol=WIRE_PROB_TOL):
           f"{[round(m, 5) for m in near]}")
     if not delta <= tol or any(m > 2 * delta for m in near):
         raise AssertionError(f"{what}: answers differ beyond a near tie")
+
+
+def _device_total_ms(fn) -> float:
+    """Device milliseconds of all the kernels one ``fn()`` runs (profiler)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
 
 def _median_s(fn, reps: int) -> float:
@@ -1274,17 +1284,23 @@ def serving(dev, records, full: bool = True):
     empty = engine.predict(one[0], [], np.zeros((0, 4), np.int32))
     if empty != {c: "" for c in engine.spec.class_list[1:]}:
         raise AssertionError(f"empty OCR answered {empty}")
+    sample = engine._make_sample(*one)
+    tokenize_ms = _median_s(lambda: engine._make_sample(*one), 5) * 1e3
+    collate_ms = _median_s(lambda: engine.collator([sample], train=False), 5) * 1e3
     print(f"serving predict, 1 document, 128 segments, {n_tok(one)} tokens, canvas "
-          f"{engine.collator([engine._make_sample(*one)], False)[0].images.shape[1:3]}: "
-          f"{single_s * 1e3:.2f} ms (median of 10, host clock); answer {want_one}")
+          f"{engine.collator([sample], False)[0].images.shape[1:3]}: {single_s * 1e3:.2f} ms "
+          f"(median of 10, host clock), of it tokenize {tokenize_ms:.2f} ms and resize and pad "
+          f"{collate_ms:.2f} ms ({100 * (tokenize_ms + collate_ms) / (single_s * 1e3):.1f}%); "
+          f"device time {_device_total_ms(lambda: engine.predict(*one)):.2f} ms; answer {want_one}")
 
+    print(f"[serving: step 2 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 2. predict_many at 1, 2, 4, 16; the 16-document call's device time; the
     # host's collate on its own
     rates = {}
     for n in (1, 2, 4, 16):
         reqs = pages[:n]
         engine.predict_many(reqs)
-        s = _median_s(lambda: engine.predict_many(reqs), 5 if n == 16 else 10)
+        s = _median_s(lambda: engine.predict_many(reqs), 3 if n == 16 else 5)
         rates[n] = (s * 1e3, n / s)
     print("serving predict_many, ms a call and docs/s: "
           + ", ".join(f"{n} docs {ms:.2f} ms {r:.1f} docs/s" for n, (ms, r) in rates.items()))
@@ -1297,6 +1313,7 @@ def serving(dev, records, full: bool = True):
     _device_time_table(lambda: engine.predict_many(pages), rates[16][0] / 1e3,
                        "one predict_many of 16 documents")
 
+    print(f"[serving: step 3 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 3. a ragged batch: 3 documents padded to 4, one of two windows and 200
     # segments (T = 1020, S bucket 256) on the tallest canvas
     ragged = [pages[1], long_doc, pages[2]]
@@ -1314,9 +1331,10 @@ def serving(dev, records, full: bool = True):
         raise AssertionError("ragged batch: scores not finite")
     engine.predict_many([wide_doc])  # S bucket 512
 
+    print(f"[serving: step 4 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 4. predict_stream against serial predict_many
     stream = [pages[i % 16] for i in range(64)]
-    engine.predict_stream(stream[:32], batch_size=16, depth=2)
+    engine.predict_stream(stream[:16], batch_size=16, depth=2)
     t0 = time.perf_counter()
     streamed = engine.predict_stream(stream, batch_size=16, depth=2)
     stream_s = time.perf_counter() - t0
@@ -1328,6 +1346,7 @@ def serving(dev, records, full: bool = True):
     print(f"serving predict_stream of 64 documents, batch 16, depth 2: {64 / stream_s:.1f} docs/s; "
           f"serial predict_many: {64 / serial_s:.1f} docs/s; answers equal")
 
+    print(f"[serving: step 5 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 5. BatchingEngine: 8 client threads x 4 requests
     # 32 requests over the 16 pages, each with its own list of texts, by
     # which its row in a formed batch is found
@@ -1357,52 +1376,73 @@ def serving(dev, records, full: bool = True):
     sizes = [len(r) for r, _, _ in formed]
     for _, _, launches in formed:
         _assert_launches(records, launches, SERVE_LAUNCHES, "BatchingEngine batch")
-    alone = {i: engine.predict(*reqs[i]) for i in range(len(reqs))}
-    got_scores, want_scores, row_of = {}, {}, {}
+    row_of, alone, got_scores, want_scores = {}, [], {}, {}
     for requests, (pred, _, _, keep), _ in formed:
         pred = pred.float().cpu()
         for row, req in zip(keep, requests):
             row_of[id(req[1])] = pred[row]
     for i, req in enumerate(reqs):
-        want_scores[i] = _scores(engine, [req])[0]
-        got_scores[i] = row_of[id(req[1])][:want_scores[i].shape[0]]
-    _agree("BatchingEngine answers vs predict", results, [alone[i] for i in range(len(reqs))],
-           got_scores, want_scores)
+        answers, scores = _answers(engine, [req])
+        alone.append(answers[0])
+        want_scores[i] = scores[0]
+        got_scores[i] = row_of[id(req[1])][:scores[0].shape[0]]
+    _agree("BatchingEngine answers vs predict", results, alone, got_scores, want_scores)
     print(f"BatchingEngine, 8 threads x 4 requests, max_batch 8, max_wait_ms 5: "
           f"{len(reqs) / batching_s:.1f} docs/s, batches formed {sizes}")
     if not full:
         print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
         return
 
+    print(f"[serving: step 6 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 6. the uint8 wire against the fp32 wire
     fp32_wire = serve_engine(dev, dict(DEPLOYMENT_HYP, serve_uint8_upload=False),
                              state=engine.model.state_dict())
     wire_reqs = [pages[0], long_doc, pages[3]]
-    _agree("uint8 wire vs fp32 wire", engine.predict_many(wire_reqs),
-           fp32_wire.predict_many(wire_reqs), _scores(engine, wire_reqs),
-           _scores(fp32_wire, wire_reqs))
+    (got, got_scores), (want, want_scores) = (_answers(e, wire_reqs) for e in (engine, fp32_wire))
+    _agree("uint8 wire vs fp32 wire", got, want, got_scores, want_scores)
     del fp32_wire
 
+    print(f"[serving: step 7 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 7. fp32, card against host, batch 2 with the two-window document
+    roi_align_card_vs_host(dev)
     fp32_hyp = dict(DEPLOYMENT_HYP, amp=False)
     card = serve_engine(dev, fp32_hyp, state=engine.model.state_dict())
     host = serve_engine("cpu", fp32_hyp, state=engine.model.state_dict())
     pair = [pages[4], long_doc]
-    got, want = _scores(card, pair), _scores(host, pair)
-    err = max((got[i] - want[i]).abs().max().item() for i in want)
-    same = card.predict_many(pair) == host.predict_many(pair)
+    (got, got_scores), (want, want_scores) = _answers(card, pair), _answers(host, pair)
+    err = max((got_scores[i] - want_scores[i]).abs().max().item() for i in want_scores)
+    same = got == want
     print(f"fp32 serving B=2 (T = 1020), card vs host: max |diff| {err:.3e} (tol "
           f"{FP32_FORWARD_ATOL}), answers equal: {same}")
     if not (err <= FP32_FORWARD_ATOL and same):
         raise AssertionError("fp32 serving: card differs from host")
     del card, host
 
+    print(f"[serving: step 8 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 8. kernel 3 against its twin at the serving shapes
     check_scatter_serving(dev, engine, ragged, wide_doc)
 
+    print(f"[serving: step 9 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 9. the HTTP front
     http_round_trip(engine, pages[5:8])
     print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def roi_align_card_vs_host(dev):
+    """RoIAlign in fp32, card against host, on boxes whose bins are whole
+    numbers of feature pixels (sides of 28·k image pixels at stride 4): there
+    a bin size one ulp off changes the number of samples a bin averages."""
+    from vibertgrid_tpu_torch.ops.roi_align import roi_align
+
+    feats = torch.randn(1, 64, 64, 32, generator=torch.Generator().manual_seed(13))
+    k = torch.arange(1, 9)
+    boxes = torch.stack([4 * k, 2 * k, 32 * k, 30 * k], -1)[None].to(torch.int32)
+    mask = torch.ones(1, 8, dtype=torch.bool)
+    want = roi_align(feats, boxes, mask)
+    err = _max_err(roi_align(feats.to(dev), boxes.to(dev), mask.to(dev)).cpu(), want)
+    print(f"roi_align fp32 on whole-pixel bins, card vs host: max |diff| {err:.3e}")
+    if not err <= FP32_KERNEL_TOL["atol"]:
+        raise AssertionError(f"roi_align: card differs from host on whole-pixel bins: {err}")
 
 
 def check_scatter_serving(dev, engine, ragged, wide_doc):

@@ -205,3 +205,18 @@ def test_chip_smoke_deployment_dict_is_the_yaml():
         jax_cfg = yaml.safe_load(f)
     # the same deployment; the port's file also names a reference checkpoint
     assert port == dict(jax_cfg, reference_weights="")
+
+
+def test_chip_smoke_vocab_tokenizer_matches_bert(tmp_path):
+    """The serving phase's tokenizer for a machine without transformers gives
+    BertTokenizer's ids on the synthetic vocabulary's words."""
+    import chip_smoke
+    from vibertgrid_tpu_torch.data.synthetic import VOCAB
+
+    bert = make_test_tokenizer(str(tmp_path))
+    plain = chip_smoke._VocabTokenizer(VOCAB)
+    for text in ("Company corp", "total 12 5", "march avenue 7 sum", "unknownword 3"):
+        pieces = plain.tokenize(text)
+        assert plain.convert_tokens_to_ids(pieces) == bert.convert_tokens_to_ids(bert.tokenize(text))
+    assert (plain.cls_token_id, plain.sep_token_id) == (bert.cls_token_id, bert.sep_token_id)
+

@@ -459,3 +459,16 @@ def test_reference_checkpoint_loader_matches_jax(mode, tmp_path):
     for name, tensor in got.items():
         assert not torch.isnan(tensor).any(), f"{name} was not overwritten"
         torch.testing.assert_close(tensor, want[name], rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_roi_align_whole_pixel_bins_card_vs_host():
+    """RoIAlign's bin size on the card, where dividing by a Python scalar is
+    a product with its reciprocal: a whole-pixel bin must keep its sample
+    count (pinned by ``chip_smoke.roi_align_card_vs_host``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (on the GPU: python -m pytest --noconftest -m cuda)")
+    import chip_smoke
+
+    chip_smoke.roi_align_card_vs_host(torch.device("cuda"))
+

@@ -104,7 +104,7 @@ def load_reference_checkpoint(model: nn.Module, state_dict: dict) -> None:
                                        if k.startswith("bert_model.") and ".pooler." not in k})
 
     # ---- backbone ----
-    b, d = "backbone", "backbone"
+    b = d = "backbone"
     conv_bn(f"{b}.conv_1.0", f"{b}.conv_1.1", f"{d}.stem_conv", f"{d}.stem_bn")
 
     def block(src: str, dst: str) -> None:
@@ -143,7 +143,7 @@ def load_reference_checkpoint(model: nn.Module, state_dict: dict) -> None:
     weight_bias("late_fusion_net.fuse_embedding_net.linear", "late_fusion.fuse")
 
     # ---- aux segmentation head (absent in inference-mode checkpoints) ----
-    sseg, d = "semantic_segmentation_head", "semantic_segmentation_head"
+    sseg = d = "semantic_segmentation_head"
     enc = (f"{sseg}.semantic_segmentation_encoder"
            if f"{sseg}.semantic_segmentation_encoder.conv_1.weight" in sd
            else f"{sseg}.ss_encoder")

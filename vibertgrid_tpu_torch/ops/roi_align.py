@@ -65,8 +65,12 @@ def roi_align(
     x0, y0, x1, y1 = box.unbind(-1)  # [B, S]
     roi_w = (x1 - x0).clamp_min(1.0)
     roi_h = (y1 - y0).clamp_min(1.0)
-    bin_w = roi_w / p
-    bin_h = roi_h / p
+    # Divided by a tensor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, one ulp off, and ceil() below then takes one sample
+    # more where a bin is a whole number of feature pixels (3, 5, 6, 7, ...).
+    pooled = torch.full_like(roi_w, float(p))
+    bin_w = roi_w / pooled
+    bin_h = roi_h / pooled
     if sampling_ratio > 0:
         gh = torch.full_like(x0, min(sampling_ratio, max_grid_h), dtype=torch.int32)
         gw = torch.full_like(x0, min(sampling_ratio, max_grid_w), dtype=torch.int32)

@@ -8,8 +8,9 @@
 - ``Collator`` on ``make_synthetic_root`` samples, fp32 and uint8: tokens,
   seg_ids, boxes and masks exact, images at the resize tolerance, the uint8
   canvas within 1 (a pixel whose resized value lands on a rounding boundary
-  can round the other way when the last float bit differs); ``EvalAux`` and
-  ``signature`` equal;
+  can round the other way when the last float bit differs; against the
+  native op none differs on this data, the resize taking its taps in the
+  native op's order); ``EvalAux`` and ``signature`` equal;
 - ``join_entities`` and both result filters equal on seeded inputs;
 - the deployment dict in ``chip_smoke.py`` equals the port's YAML copy.
 """

@@ -461,6 +461,36 @@ def test_reference_checkpoint_loader_matches_jax(mode, tmp_path):
         torch.testing.assert_close(tensor, want[name], rtol=0, atol=0, msg=name)
 
 
+def test_engine_loads_weights_and_reference_weights(engines, tmp_path):
+    """``weights`` restores only the model of a port checkpoint directory
+    (strict); ``reference_weights`` loads a ViBERTgrid-PyTorch file."""
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN_HYP
+    from vibertgrid_tpu_torch.models.convert_reference import load_reference_checkpoint
+    from vibertgrid_tpu_torch.train.checkpoint import CheckpointManager
+    from vibertgrid_tpu_torch.train.optim import make_optimizer
+    from vibertgrid_tpu_torch.train.state import create_train_state
+
+    _, peng, tokenizer = engines
+    model = peng.model
+    optimizer = make_optimizer(FLAGSHIP_TRAIN_HYP, num_epochs=1, niter_per_ep=1,
+                               named_parameters=model.named_parameters())
+    path = CheckpointManager(str(tmp_path / "ckpt")).save(create_train_state(model, optimizer))
+    restored = InferenceEngine(dict(HYP, weights=path), tokenizer=tokenizer, spec=port_spec(),
+                               device="cpu")
+    for name, tensor in model.state_dict().items():
+        assert torch.equal(restored.model.state_dict()[name], tensor), name
+    request = REQUESTS[0]
+    assert restored.predict(*request) == peng.predict(*request)
+
+    sd = _reference_state_dict(model, "simp", seed=3, encoder="semantic_segmentation_encoder")
+    torch.save(sd, tmp_path / "reference.pth")
+    served = InferenceEngine(dict(HYP, reference_weights=str(tmp_path / "reference.pth")),
+                             tokenizer=tokenizer, spec=port_spec(), device="cpu")
+    load_reference_checkpoint(restored.model, sd)
+    for name, tensor in restored.model.state_dict().items():
+        assert torch.equal(served.model.state_dict()[name], tensor), name
+
+
 @pytest.mark.cuda
 def test_roi_align_whole_pixel_bins_card_vs_host():
     """RoIAlign's bin size on the card, where dividing by a Python scalar is

@@ -1,4 +1,4 @@
-"""The training driver's builders (port of the first half of
+"""The training driver's setup functions (port of the first half of
 ``vibertgrid_tpu/train/driver.py``): the tokenizer, the model with its
 transform and collator from a reference-compatible YAML dict, and the
 loaders of local pretrained weights. The serving engine builds its model

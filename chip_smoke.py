@@ -49,13 +49,16 @@
 8. serves at the width of ``vibertgrid_tpu_torch/configs/deployment_sroie.yaml``
    (BERT-base-uncased, ResNet-34-FPN, simplified head, bf16, short edge 512,
    long edge at most 800) through ``InferenceEngine`` and ``BatchingEngine``
-   on numpy pages and the synthetic vocabulary: (1) ``predict`` of one
+   on numpy pages and the synthetic vocabulary, the category head's last bias
+   shifted by its mean logit so that the random weights fill fields (each
+   comparison of answers fails if every field is empty): (1) ``predict`` of one
    document of 128 segments, timed, with its dispatch under
    ``torch.cuda.set_sync_debug_mode("error")``, and an empty-OCR request;
    (2) ``predict_many`` of 1, 2, 4 and 16 documents, the 16's device time and
    the host's collate on its own; (3) a ragged batch of 3 documents padded to
    4, one of two windows (T = 1020, S bucket 256), and one of S = 512; (4)
-   ``predict_stream`` of 64 documents against serial ``predict_many``; (5)
+   ``predict_stream`` of 64 documents against serial ``predict_many``, answers
+   and score rows equal; (5)
    ``BatchingEngine`` under 8 client threads, each answer against the
    request's own ``predict``; each with the launches of a forward asserted
    (attention 12, FFN 12, saved-residual FFN 0, scatter 1); then (6) the
@@ -63,7 +66,11 @@
    with the two-window document, (8) kernel 3 bit for bit against its twin on
    the serving batches' boxes (S = 256 on an 832 x 512 canvas, S = 512) and
    (9) the HTTP front: ``serve()`` with a stub OCR service on localhost,
-   three POSTs answered as ``predict``.
+   three POSTs answered as ``predict``, with equal scores.
+
+The ``kernels`` line gives each kernel's launches in a served request (step
+8 (1)) where it runs there, else in the first path that ran it; the line
+before it gives them by path.
 
 ``--only flagship`` is for comparing two trees on one card: run it from each
 tree's root in turns (parent, change, change, parent) in one shell command and
@@ -789,11 +796,12 @@ def _timed_forward(model, batch, what, iters: int = 10) -> float:
 
 
 def _assert_launches(records, launches, want, what):
+    """Check one path's launches, and keep each kernel's count by path."""
     if launches != want:
         raise AssertionError(f"{what} launches {launches}, expected {want}")
     for r in records:
         if want[r["name"]]:
-            r["launches"] = launches[r["name"]]
+            r.setdefault("paths", {})[what] = launches[r["name"]]
 
 
 def flagship_forward(dev, records):
@@ -1126,8 +1134,9 @@ SERVE_LAUNCHES = dict(flash_attention=12, flash_attention_bwd=0, fused_ffn=12, f
                       fused_proj_ln=0, bertgrid_scatter=1, bertgrid_scatter_bwd=0)
 # Two answers to one request that the card computed in batches of other
 # shapes (or over the two wires) are compared as tests/test_serve.py compares
-# the wires: the class probabilities within WIRE_PROB_TOL, the fields equal
-# unless some segment's top-2 margin is within twice the measured difference.
+# the wires: the class probabilities (the simplified head's softmax, which the
+# engine reads as its scores) within WIRE_PROB_TOL, the fields equal unless
+# some segment's top-2 margin is within twice the measured difference.
 WIRE_PROB_TOL = 0.05
 A4, TALL = (1100, 850), (1250, 800)  # pages resized to 662x512 and 800x512
 
@@ -1186,11 +1195,41 @@ def _answers(engine, requests):
     pred, aux, _, keep = pending
     pred = pred.float().cpu()
     scores = {i: pred[row, :aux.n_segments[row]] for row, i in enumerate(keep)}
+    for p in scores.values():
+        if not (p.sum(-1) - 1).abs().max().item() <= 1e-4:
+            raise AssertionError("serving scores are not probabilities")
     return engine._finish(*pending), scores
+
+
+def _centre_head(engine, requests):
+    """Random weights give every segment one class, so every field is '' and
+    a comparison of answers compares nothing. Shift the category head's last
+    bias by its mean logit over the segments of ``requests``: the classes then
+    split the segments by what tells them apart."""
+    net = engine.model.field_type_head.category_net
+    logits = []
+    hook = net.register_forward_hook(lambda m, i, o: logits.append(o.float().clone()))
+    try:
+        pred, aux, _, _ = engine._dispatch(requests)
+    finally:
+        hook.remove()
+    rows = logits[0].view(*pred.shape[:2], -1)
+    mean = torch.cat([rows[b, :n] for b, n in enumerate(aux.n_segments)]).mean(0)
+    with torch.no_grad():
+        net.out.bias.sub_(mean.to(net.out.bias.dtype))
+
+
+def _fields_compared(what, answers):
+    """Fail unless some answer has a field that is not empty."""
+    filled = sum(bool(v) for a in answers for v in a.values())
+    print(f"{what}: {filled} of {sum(len(a) for a in answers)} fields filled")
+    if not filled:
+        raise AssertionError(f"{what}: every field empty, nothing compared")
 
 
 def _agree(what, got, want, got_scores, want_scores, tol=WIRE_PROB_TOL):
     """Answers ``got`` against ``want`` under the wire rule above."""
+    _fields_compared(what, want)
     delta = max(((got_scores[i] - want_scores[i]).abs().max().item() for i in want_scores),
                 default=0.0)
     differ = [i for i in range(len(want)) if got[i] != want[i]]
@@ -1224,16 +1263,16 @@ def _median_s(fn, reps: int) -> float:
 
 def _counted(engine, formed):
     """Wrap ``engine._dispatch`` so that each formed batch records its
-    requests, its prediction and the launches it made."""
+    requests, its prediction and the launches it made (the counts set to 0
+    just before it; one thread dispatches at a time)."""
     from vibertgrid_tpu_torch.ops import kernels
 
     dispatch = engine._dispatch
 
     def counted(requests):
-        before = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
         out = dispatch(requests)
-        formed.append((requests, out,
-                       {k: kernels.LAUNCHES[k] - before[k] for k in before}))
+        formed.append((requests, out, dict(kernels.LAUNCHES)))
         return out
 
     engine._dispatch = counted
@@ -1266,6 +1305,7 @@ def serving(dev, records, full: bool = True):
     n_tok = lambda req: sum(len(engine.tokenizer.tokenize(t)) for t in req[1])
     if not (max(map(n_tok, pages)) <= 510 < 700 <= n_tok(long_doc) <= 1020):
         raise AssertionError("serving documents: token counts off their windows")
+    _centre_head(engine, pages)
 
     # 1. single requests; the dispatch reads nothing back from the card
     one = pages[0]
@@ -1286,9 +1326,9 @@ def serving(dev, records, full: bool = True):
         raise AssertionError(f"empty OCR answered {empty}")
     sample = engine._make_sample(*one)
     tokenize_ms = _median_s(lambda: engine._make_sample(*one), 5) * 1e3
-    collate_ms = _median_s(lambda: engine.collator([sample], train=False), 5) * 1e3
+    collate_ms = _median_s(lambda: engine._collate([sample]), 5) * 1e3
     print(f"serving predict, 1 document, 128 segments, {n_tok(one)} tokens, canvas "
-          f"{engine.collator([sample], False)[0].images.shape[1:3]}: {single_s * 1e3:.2f} ms "
+          f"{engine._collate([sample])[0].images.shape[1:3]}: {single_s * 1e3:.2f} ms "
           f"(median of 10, host clock), of it tokenize {tokenize_ms:.2f} ms and resize and pad "
           f"{collate_ms:.2f} ms ({100 * (tokenize_ms + collate_ms) / (single_s * 1e3):.1f}%); "
           f"device time {_device_total_ms(lambda: engine.predict(*one)):.2f} ms; answer {want_one}")
@@ -1306,7 +1346,7 @@ def serving(dev, records, full: bool = True):
           + ", ".join(f"{n} docs {ms:.2f} ms {r:.1f} docs/s" for n, (ms, r) in rates.items()))
     tokenize_s = _median_s(lambda: [engine._make_sample(*r) for r in pages], 3)
     samples = [engine._make_sample(*r) for r in pages]
-    collate_s = _median_s(lambda: engine.collator(samples, train=False), 3)
+    collate_s = _median_s(lambda: engine._collate(samples), 3)
     print(f"serving host collate of 16 documents: tokenize {tokenize_s * 1e3:.2f} ms, resize and "
           f"pad {collate_s * 1e3:.2f} ms, together {100 * (tokenize_s + collate_s) / (rates[16][0] / 1e3):.1f}% "
           f"of the predict_many call")
@@ -1321,7 +1361,7 @@ def serving(dev, records, full: bool = True):
     pred, aux, _, _ = engine._dispatch(ragged)
     torch.cuda.synchronize()
     _assert_launches(records, dict(kernels.LAUNCHES), SERVE_LAUNCHES, "serving ragged batch")
-    batch, _ = engine.collator([engine._make_sample(*r) for r in ragged], train=False)
+    batch, _ = engine._collate([engine._make_sample(*r) for r in ragged])
     print(f"serving ragged batch: prediction {tuple(pred.shape)}, tokens {batch.tokens.shape}, "
           f"canvas {batch.images.shape[1:3]}; launches as for one window (the windows of the "
           f"batch go through each kernel in one launch)")
@@ -1332,19 +1372,31 @@ def serving(dev, records, full: bool = True):
     engine.predict_many([wide_doc])  # S bucket 512
 
     print(f"[serving: step 4 starts at {time.perf_counter() - t_phase:.1f} s]")
-    # 4. predict_stream against serial predict_many
+    # 4. predict_stream against serial predict_many: answers and score rows
     stream = [pages[i % 16] for i in range(64)]
     engine.predict_stream(stream[:16], batch_size=16, depth=2)
-    t0 = time.perf_counter()
-    streamed = engine.predict_stream(stream, batch_size=16, depth=2)
-    stream_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    serial = [a for i in range(0, 64, 16) for a in engine.predict_many(stream[i:i + 16])]
-    serial_s = time.perf_counter() - t0
-    if streamed != serial:
+    runs = {"stream": [], "serial": []}
+    try:
+        _counted(engine, runs["stream"])
+        t0 = time.perf_counter()
+        streamed = engine.predict_stream(stream, batch_size=16, depth=2)
+        stream_s = time.perf_counter() - t0
+        del engine._dispatch
+        _counted(engine, runs["serial"])
+        t0 = time.perf_counter()
+        serial = [a for i in range(0, 64, 16) for a in engine.predict_many(stream[i:i + 16])]
+        serial_s = time.perf_counter() - t0
+    finally:
+        engine.__dict__.pop("_dispatch", None)
+    _fields_compared("predict_stream vs serial predict_many", serial)
+    for (_, (got, *_), launches), (_, (want, *_), _) in zip(runs["stream"], runs["serial"]):
+        _assert_launches(records, launches, SERVE_LAUNCHES, "predict_stream batch")
+        if not torch.equal(got, want):
+            raise AssertionError("predict_stream scores differ from serial predict_many")
+    if streamed != serial or len(runs["stream"]) != 4:
         raise AssertionError("predict_stream answers differ from serial predict_many")
     print(f"serving predict_stream of 64 documents, batch 16, depth 2: {64 / stream_s:.1f} docs/s; "
-          f"serial predict_many: {64 / serial_s:.1f} docs/s; answers equal")
+          f"serial predict_many: {64 / serial_s:.1f} docs/s; answers and scores equal")
 
     print(f"[serving: step 5 starts at {time.perf_counter() - t_phase:.1f} s]")
     # 5. BatchingEngine: 8 client threads x 4 requests
@@ -1410,6 +1462,7 @@ def serving(dev, records, full: bool = True):
     host = serve_engine("cpu", fp32_hyp, state=engine.model.state_dict())
     pair = [pages[4], long_doc]
     (got, got_scores), (want, want_scores) = _answers(card, pair), _answers(host, pair)
+    _fields_compared("fp32 serving card vs host", want)
     err = max((got_scores[i] - want_scores[i]).abs().max().item() for i in want_scores)
     same = got == want
     print(f"fp32 serving B=2 (T = 1020), card vs host: max |diff| {err:.3e} (tol "
@@ -1471,8 +1524,8 @@ def check_scatter_serving(dev, engine, ragged, wide_doc):
 
 def http_round_trip(engine, requests):
     """``serve()`` on localhost with a stub OCR service: one POST to
-    ``/core`` a request, its PNG page; the answers equal ``predict`` on the
-    decoded page and the OCR segments."""
+    ``/core`` a request, its PNG page; the answers and the scores behind them
+    equal ``predict``'s on the decoded page and the OCR segments."""
     import io
     import urllib.request
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -1504,7 +1557,7 @@ def http_round_trip(engine, requests):
         port = s.getsockname()[1]
     engine.ocr_url = f"http://127.0.0.1:{ocr.server_address[1]}/ocr"
     threading.Thread(target=serve, args=(engine,), kwargs={"port": port}, daemon=True).start()
-    times = []
+    times, answers = [], []
     try:
         for image, texts, boxes in requests:
             # eng_line reads corners 0, 1 and 2, 5 of each line's position
@@ -1519,25 +1572,34 @@ def http_round_trip(engine, requests):
             req = urllib.request.Request(f"http://127.0.0.1:{port}/core", data=body,
                                          headers={"Content-Type": 'multipart/form-data; boundary="b"'})
             deadline = time.time() + 30
-            while True:
-                try:
-                    t0 = time.perf_counter()
-                    with urllib.request.urlopen(req, timeout=60) as r:
-                        answer = json.loads(r.read())
-                    times.append(time.perf_counter() - t0)
-                    break
-                except OSError:
-                    if time.time() > deadline:
-                        raise
-                    time.sleep(0.2)
-            want = engine.predict(pixels.astype(np.float32) / 255.0, texts, boxes)
-            if answer != {"result": want}:
+            formed = []
+            _counted(engine, formed)  # the server's thread dispatches the POST
+            try:
+                while True:
+                    try:
+                        t0 = time.perf_counter()
+                        with urllib.request.urlopen(req, timeout=60) as r:
+                            answer = json.loads(r.read())
+                        times.append(time.perf_counter() - t0)
+                        break
+                    except OSError:
+                        if time.time() > deadline:
+                            raise
+                        time.sleep(0.2)
+            finally:
+                del engine._dispatch
+            (want,), scores = _answers(engine, [(pixels.astype(np.float32) / 255.0, texts, boxes)])
+            (_, (pred, aux, _, _), _), = formed
+            got = pred.float().cpu()[0, :aux.n_segments[0]]
+            if answer != {"result": want} or not torch.equal(got, scores[0]):
                 raise AssertionError(f"HTTP answer {answer} differs from predict {want}")
+            answers.append(want)
     finally:
         ocr.shutdown()
         engine.ocr_url = DEPLOYMENT_HYP["ocr_url"]
+    _fields_compared("HTTP answers vs predict", answers)
     print(f"HTTP /core round trip with a stub OCR service: {len(requests)} POSTs answered as "
-          f"predict, {', '.join(f'{t * 1e3:.1f}' for t in times)} ms each (the first includes "
+          f"predict with equal scores, {', '.join(f'{t * 1e3:.1f}' for t in times)} ms each (the first includes "
           f"the server's start)")
 
 
@@ -1803,6 +1865,11 @@ def main(argv) -> int:
     fp32_crf_decode_card_vs_host(dev)
     serving(dev, records)
 
+    # a kernel's launches: those of this slice's path, a served request
+    # (step 1), where it runs there, else those of the first path that ran it
+    for r in records:
+        r["launches"] = r["paths"].get("serving predict", next(iter(r["paths"].values())))
+    print("launches by path: " + json.dumps({r["name"]: r["paths"] for r in records}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

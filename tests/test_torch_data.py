@@ -77,6 +77,26 @@ def test_bilinear_resize_matches_jax_numpy():
                                    jtransform.bilinear_resize(image, *out_hw), **RESIZE_TOL)
 
 
+@pytest.mark.parametrize("hw, out_hw", [((1100, 850), (662, 512)), ((1250, 800), (800, 512)),
+                                        ((2000, 1400), (731, 512)), ((230, 170), (692, 512)),
+                                        ((64, 900), (56, 800)), ((37, 23), (37, 23))])
+def test_resize_is_the_native_ops_bits(hw, out_hw):
+    """The port's resize and normalization give the JAX package's C++ host op's
+    bits: downsizing by more than 2 (rows no output row reads), upsizing, one
+    axis down and one up, the same size."""
+    from vibertgrid_tpu.data import native
+
+    assert native.native_available()
+    rng = np.random.default_rng(hw[0] * hw[1])
+    image = rng.random((*hw, 3)).astype(np.float32)
+    mean, std = (np.asarray(v, np.float32) for v in _stats())
+    got = np.full((*out_hw, 3), 7.0, np.float32)
+    want = np.zeros_like(got)
+    ttransform.resize_normalize_into(image, got, *out_hw, mean, std)
+    native.bilinear_resize_norm_into(image, want, *out_hw, mean, std)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_buckets_match_jax():
     for h in range(1, 900, 37):
         for w in range(1, 900, 53):

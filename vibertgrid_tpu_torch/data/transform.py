@@ -38,9 +38,14 @@ def resize_normalize_into(image: np.ndarray, dst: np.ndarray, out_h: int, out_w:
                           mean, std) -> None:
     """Bilinear resize of ``image [H, W, C]`` (float in [0, 1]) to ``out_h x
     out_w``, normalised, written into the top-left of the canvas ``dst [bh,
-    bw, C]`` (float32, C-contiguous); the rest of ``dst`` is left as it is."""
+    bw, C]`` (float32, C-contiguous); the rest of ``dst`` is left as it is.
+
+    Separable, in place where it can be: each source row that an output row
+    reads is lerped across once (a row's lerp does not depend on which output
+    row reads it, so the bits are the native op's), then the output rows are
+    lerped down from those."""
     img = torch.from_numpy(np.ascontiguousarray(image, np.float32))
-    h, w, _ = img.shape
+    h, w, c = img.shape
     out = torch.from_numpy(dst)[:out_h, :out_w]
     mean = torch.from_numpy(np.asarray(mean, np.float32))
     inv_std = 1.0 / torch.from_numpy(np.asarray(std, np.float32))
@@ -49,11 +54,21 @@ def resize_normalize_into(image: np.ndarray, dst: np.ndarray, out_h: int, out_w:
         return
     ylo, yhi, fy = _taps(out_h, h)
     xlo, xhi, fx = _taps(out_w, w)
-    fx, fy = fx[None, :, None], fy[:, None, None]
-    top, bot = img.index_select(0, ylo), img.index_select(0, yhi)
-    top = top.index_select(1, xlo) * (1 - fx) + top.index_select(1, xhi) * fx
-    bot = bot.index_select(1, xlo) * (1 - fx) + bot.index_select(1, xhi) * fx
-    torch.mul(top * (1 - fy) + bot * fy - mean, inv_std, out=out)
+    # the taps over the flattened (x, channel) axis, so a gather moves floats
+    # and not 3-float slices
+    chan = torch.arange(c)
+    xlo, xhi = ((x[:, None] * c + chan).reshape(-1) for x in (xlo, xhi))
+    fx = fx[:, None].expand(out_w, c).reshape(-1)
+    rows, row_of = torch.unique(torch.cat([ylo, yhi]), return_inverse=True)
+    src = img.view(h, w * c)
+    if len(rows) < h:
+        src = src.index_select(0, rows)
+    across = src.index_select(1, xlo).mul_(1 - fx)
+    across.add_(src.index_select(1, xhi).mul_(fx))
+    fy = fy[:, None]
+    down = across.index_select(0, row_of[:out_h]).mul_(1 - fy)
+    down.add_(across.index_select(0, row_of[out_h:]).mul_(fy))
+    torch.mul(down.view(out_h, out_w, c).sub_(mean), inv_std, out=out)
 
 
 def bilinear_resize(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

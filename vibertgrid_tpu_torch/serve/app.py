@@ -96,11 +96,10 @@ def main(argv=None):
     parser.add_argument("-d", "--dataset", default="sroie")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=11451)
-    parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     with open(args.config) as f:
         hyp = yaml.safe_load(f)
-    engine = InferenceEngine(hyp, dataset=args.dataset, device=args.device)
+    engine = InferenceEngine(hyp, dataset=args.dataset)
     if hyp.get("batching", False):
         # micro-batch concurrent requests into shared device calls
         # (serve/batching.py); both fronts are threaded (Flask's werkzeug

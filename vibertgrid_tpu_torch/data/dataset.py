@@ -22,6 +22,7 @@ from vibertgrid_tpu_torch.data.transform import (
     bucket_count,
     bucket_hw,
     resize_normalize_into,
+    resize_uint8_into,
 )
 from vibertgrid_tpu_torch.models.vibertgrid import Batch
 
@@ -108,26 +109,24 @@ class Collator:
                for s, ms in zip(samples, min_sizes)]
 
         bh, bw = bucket_hw(max(h for h, _ in hws), max(w for _, w in hws), self.hw_multiple)
-        image_arr = np.zeros((b, bh, bw, 3), np.float32)
-        if self.emit_uint8:
-            # resize only, scaled to [0, 255]: (x - 0) / (1/255) = 255·x
-            mean, std = np.zeros(3, np.float32), np.full(3, 1.0 / 255.0, np.float32)
-        else:
-            mean = np.asarray(tr.image_mean, np.float32)
-            std = np.asarray(tr.image_std, np.float32)
+        # uint8: the resize only, scaled to [0, 255] and rounded, page by page
+        image_arr = np.zeros((b, bh, bw, 3), np.uint8 if self.emit_uint8 else np.float32)
+        mean = np.asarray(tr.image_mean, np.float32)
+        std = np.asarray(tr.image_std, np.float32)
 
         def _resize_sample(i: int):
             s = samples[i]
             oh, ow = hws[i]
-            resize_normalize_into(s.image, image_arr[i], oh, ow, mean, std)
+            if self.emit_uint8:
+                resize_uint8_into(s.image, image_arr[i], oh, ow)
+            else:
+                resize_normalize_into(s.image, image_arr[i], oh, ow, mean, std)
             return tr.rescale_boxes(s.boxes, s.image.shape[:2], (oh, ow))
 
         if pool is not None and b > 1:
             boxes_list = list(pool.map(_resize_sample, range(b)))
         else:
             boxes_list = [_resize_sample(i) for i in range(b)]
-        if self.emit_uint8:
-            image_arr = np.clip(np.rint(image_arr), 0.0, 255.0).astype(np.uint8)
 
         n_seg = max(max((len(s.seg_classes) for s in samples), default=1), 1)
         s_cap = bucket_count(n_seg, self.seg_buckets)

@@ -71,6 +71,19 @@ def resize_normalize_into(image: np.ndarray, dst: np.ndarray, out_h: int, out_w:
     torch.mul(down.view(out_h, out_w, c).sub_(mean), inv_std, out=out)
 
 
+def resize_uint8_into(image: np.ndarray, dst: np.ndarray, out_h: int, out_w: int) -> None:
+    """The resize scaled to [0, 255], rounded half to even and clipped, written
+    into the top-left of the uint8 canvas ``dst [bh, bw, C]``: the values of
+    ``np.clip(np.rint(x), 0, 255)`` for ``x`` the resize normalized with mean 0
+    and std 1/255, one page at a time and not over a whole float canvas."""
+    c = image.shape[2]
+    resized = np.empty((out_h, out_w, c), np.float32)
+    resize_normalize_into(image, resized, out_h, out_w, np.zeros(c, np.float32),
+                          np.full(c, 1.0 / 255.0, np.float32))
+    values = torch.from_numpy(resized).round_().clamp_(0.0, 255.0)
+    torch.from_numpy(dst)[:out_h, :out_w].copy_(values)
+
+
 def bilinear_resize(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """The resize alone: ``image [H, W, C]`` → ``[out_h, out_w, C]`` float32."""
     out = np.empty((out_h, out_w, image.shape[2]), np.float32)

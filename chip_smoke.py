@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
     python3 chip_smoke.py --only serve      # build, then serving steps 1-5 alone
+    python3 chip_smoke.py --only driver     # build, then step 9 alone
     python3 chip_smoke.py --only attention [--tree DIR]   # build, then time kernels 1 and 4
     python3 chip_smoke.py --only ffn [--tree DIR]         # build, then time kernels 2 and 5
     python3 chip_smoke.py --only proj_ln [--tree DIR]     # build, then time kernel 7
@@ -66,16 +67,35 @@
    with the two-window document, (8) kernel 3 bit for bit against its twin on
    the serving batches' boxes (S = 256 on an 832 x 512 canvas, S = 512) and
    (9) the HTTP front: ``serve()`` with a stub OCR service on localhost,
-   three POSTs answered as ``predict``, with equal scores.
+   three POSTs answered as ``predict``, with equal scores;
+9. trains and evaluates through the port's command-line entry points at the
+   width of ``vibertgrid_tpu_torch/configs/sroie_example.yaml`` (BERT-base,
+   ResNet-34-FPN, simplified head, bf16, batch 2, random train scales
+   320-704, OHEM random) on a synthetic dataset of 16 training and 8 test
+   documents of 40-80 segments: (1) ``driver.main`` for two epochs, every
+   loss finite, the launches of every train step (attention 12, attention
+   backward 12, saved-residual FFN 12, scatter 1, scatter backward 1) and of
+   every validate batch (attention 12, FFN 12, scatter 1) with the counts set
+   to 0 just before each; train docs/s, wall, device time and the wait on the
+   loader a step, validate docs/s, peak memory; (2) one more epoch resumed
+   from the last checkpoint, the step count carrying on; (3) ``eval.cli.main``
+   on that checkpoint: F1 and per-document predictions equal to the driver's
+   validate of it, and on the uint8 wire the F1 within 0.05; (4) the fp32
+   validate of the checkpoint on the card and on the host (segments classed
+   otherwise only at top-2 margins under 1e-3, loss within 1e-4); (5) the
+   tiny learnability run of ``tests/test_learnability.py`` (fp32, 24 epochs)
+   held to its thresholds (best F1 above 0.5, two entity types learned).
 
-The ``kernels`` line gives each kernel's launches in a served request (step
-8 (1)) where it runs there, else in the first path that ran it; the line
-before it gives them by path.
+The ``kernels`` line gives each kernel's launches in a train step of the
+driver (step 9 (1)) where it runs there, else in a validate batch of the
+driver, else in the first path that ran it; the line before it gives them by
+path.
 
 ``--only flagship`` is for comparing two trees on one card: run it from each
 tree's root in turns (parent, change, change, parent) in one shell command and
 read the two lines "flagship forward" and "flagship train step"; ``--only
-serve`` likewise runs step 8's parts (1) to (5) alone. ``--only
+serve`` likewise runs step 8's parts (1) to (5) alone, ``--only driver`` step
+9. ``--only
 attention`` does the same for the two attention kernels alone, through the
 package's public ``flash_attention`` only, so ``--tree DIR`` can point this
 script at another checkout's package (an earlier commit unpacked under a
@@ -92,6 +112,7 @@ non-zero; without a CUDA device it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -1481,6 +1502,316 @@ def serving(dev, records, full: bool = True):
     print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- the training driver path ----
+
+# tests/test_train_driver.py's tiny config with tests/test_learnability.py's
+# changes (tests/test_torch_driver.py holds them equal): the learnability run
+LEARN_HYP = {
+    "comment": "synthetic-smoke", "tee_logs": False, "mesh_data": 1, "mesh_model": 1,
+    "batch_size": 4, "start_epoch": 0, "end_epoch": 24, "num_classes": 5,
+    "bert_version": "tiny-bert-test", "backbone": "resnet_18_fpn", "classifier_mode": "simp",
+    "eval_mode": "seqeval", "tag_mode": "B", "layer_mode": "single", "image_min_size": [256],
+    "test_image_min_size": 256, "image_max_size": 400, "image_mean": [0.9, 0.9, 0.9],
+    "image_std": [0.15, 0.15, 0.15], "num_hard_positive_main_1": 8,
+    "num_hard_negative_main_1": 8, "num_hard_positive_main_2": 8,
+    "num_hard_negative_main_2": 8, "loss_aux_sample_list": [64, 128, 64],
+    "num_hard_positive_aux": 32, "num_hard_negative_aux": 32, "ohem_random": False,
+    "loss_control_lambda": 1.0, "add_pos_neg": True, "weights": "",
+    "optimizer_cnn_hyp": dict(learning_rate=5e-3, min_learning_rate=1e-5, warm_up_epoches=3,
+                              warm_up_init_lr=1e-5, momentum=0.9, weight_decay=5e-4,
+                              min_weight_decay=5e-4),
+    "optimizer_bert_hyp": dict(learning_rate=5e-4, min_learning_rate=1e-7, warm_up_epoches=3,
+                               warm_up_init_lr=1e-7, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                               weight_decay=0.01, min_weight_decay=0.01),
+}
+LEARN_F1, LEARN_TYPES = 0.5, 2  # tests/test_learnability.py's thresholds
+# Evaluation of one checkpoint through the CLI against the driver's validate
+# of the same state (bf16): equal F1 and predictions; on the uint8 wire the
+# F1 within UINT8_F1_TOL (tests/test_model.py's bound for the JAX package).
+UINT8_F1_TOL = 0.05
+# fp32 validate, card vs host: segments whose class differs must all be near
+# ties (top-2 margin of the host's scores under FP32_MARGIN); the loss within
+# FP32_TRAIN_LOSS_RTOL.
+FP32_MARGIN = 1e-3
+
+
+@contextlib.contextmanager
+def _instrumented(*modules):
+    """Wrap ``make_train_step``, ``make_eval_step`` and ``validate`` where
+    ``modules`` import them: each train step's and each evaluation batch's
+    launches (the counts set to 0 just before the call and read just after),
+    each validate's results and each segment's class in it, and the first
+    four train steps' batches."""
+    from vibertgrid_tpu_torch.ops import kernels
+
+    record = {"train": [], "validate": [], "results": [], "classes": [], "batches": []}
+    classes = []
+
+    def counting(kind, step):
+        def run(*args):
+            kernels.reset_launch_counts()
+            out = step(*args)
+            record[kind].append(dict(kernels.LAUNCHES))
+            if kind == "train" and len(record["batches"]) < 4:
+                record["batches"].append(args[1])
+                record["step"] = step
+            if kind == "validate":
+                classes.append(out.pred_label.argmax(-1)[args[1].box_mask].cpu())
+            return out
+        return run
+
+    def keeping(validate):
+        def run(*args, **kw):
+            classes.clear()
+            record["results"].append(validate(*args, **kw))
+            record["classes"].append(torch.cat(classes))
+            return record["results"][-1]
+        return run
+
+    wraps = {"make_train_step": lambda f: lambda *a, **k: counting("train", f(*a, **k)),
+             "make_eval_step": lambda f: lambda *a, **k: counting("validate", f(*a, **k)),
+             "validate": keeping}
+    saved = [(m, name, getattr(m, name)) for m in modules for name in wraps if hasattr(m, name)]
+    for m, name, f in saved:
+        setattr(m, name, wraps[name](f))
+    try:
+        yield record
+    finally:
+        for m, name, f in saved:
+            setattr(m, name, f)
+
+
+def _driver_yaml(tmp, root, name, **changes) -> str:
+    """``configs/sroie_example.yaml`` with the driver phase's changes, written
+    to ``tmp/name``."""
+    import yaml
+
+    with open(os.path.join(HERE, "vibertgrid_tpu_torch", "configs", "sroie_example.yaml")) as f:
+        hyp = yaml.safe_load(f)
+    hyp.update(data_root=root, tokenizer_path=os.path.join(root, "vocab.txt"),
+               save_top=os.path.join(tmp, "weights"), save_log=os.path.join(tmp, "log"),
+               tee_logs=False, end_epoch=2, eval_batch_size=8)
+    hyp.update(changes)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(hyp, f)
+    return path
+
+
+def _driver_launches(records, record, what, kinds=("train", "validate")):
+    """Every train step's and every evaluation batch's launches; a validate
+    batch launches what a served batch does."""
+    wants = {"train": TRAIN_LAUNCHES, "validate": SERVE_LAUNCHES}
+    for kind in kinds:
+        label, counts = f"{what} {kind} {'step' if kind == 'train' else 'batch'}", record[kind]
+        if not counts:
+            raise AssertionError(f"{label}: no call counted")
+        for launches in counts:
+            _assert_launches(records, launches, wants[kind], label)
+        print(f"{label}: {len(counts)} calls, each {counts[0]}")
+
+
+def _epoch_losses(results):
+    losses = [x for e in results["timings"]["train"] for x in e["losses"]]
+    if not losses or not all(x == x and abs(x) < 1e4 for x in losses):
+        raise AssertionError(f"driver losses {losses}")
+    return losses
+
+
+def _driver_timings(results, steps_device_ms, what):
+    """The driver's numbers: train docs/s, wall and loader wait a step (each
+    epoch), device ms a step, validate docs/s."""
+    for e in results["timings"]["train"]:
+        n = max(e["steps"], 1)
+        print(f"{what} epoch {e['epoch'] + 1}: {e['docs'] / e['wall_s']:.2f} train docs/s, "
+              f"{1e3 * e['wall_s'] / n:.2f} ms a step of wall, "
+              f"{1e3 * e['loader_wait_s'] / n:.2f} ms a step waiting on the loader "
+              f"({e['steps']} steps of batch {e['docs'] // n})")
+    if steps_device_ms is not None:
+        print(f"{what}: device time a train step {steps_device_ms:.2f} ms (profiler, 4 steps)")
+    for v in results["timings"]["validate"]:
+        print(f"{what} validate (epoch {v['epoch']}): {v['docs'] / v['wall_s']:.2f} docs/s "
+              f"({v['docs']} documents, {v['wall_s']:.3f} s)")
+
+
+def _validate_scores(hyp, device):
+    """``(results, valid scores [N, C] on the host)`` of the port's validate of
+    the checkpoint ``hyp["weights"]`` on ``device``."""
+    from vibertgrid_tpu_torch.data.dataset import (
+        KIEDataset,
+        bucketed_eval_loader,
+        prefetch_to_device,
+    )
+    from vibertgrid_tpu_torch.data.synthetic import synthetic_spec
+    from vibertgrid_tpu_torch.eval.harness import validate
+    from vibertgrid_tpu_torch.train.checkpoint import restore_model
+    from vibertgrid_tpu_torch.train.driver import build_all, build_tokenizer
+    from vibertgrid_tpu_torch.train.state import TrainState, make_eval_step
+
+    tokenizer = build_tokenizer(hyp)
+    spec, _, model, _, collator, tag_to_idx = build_all(hyp, "sroie", tokenizer,
+                                                        synthetic_spec(), device=device)
+    restore_model(hyp["weights"], model)
+    step, scores = make_eval_step(), []
+
+    def keeping(state, batch):
+        out = step(state, batch)
+        scores.append(out.pred_label.float()[batch.box_mask].cpu())
+        return out
+
+    loader = bucketed_eval_loader(KIEDataset(os.path.join(hyp["data_root"], "test"), spec,
+                                             tokenizer, train=False),
+                                  collator, batch_size=hyp["eval_batch_size"])
+    with contextlib.closing(prefetch_to_device(loader, device)) as batches:
+        results = validate(keeping, TrainState(model=model, optimizer=None), batches, spec,
+                           eval_mode=hyp["eval_mode"], tag_to_idx=tag_to_idx, verbose=False)
+    return results, torch.cat(scores)
+
+
+def fp32_validate_card_vs_host(dev, config):
+    """The fp32 validate of one checkpoint on the card (kernels) and on the
+    host (twins)."""
+    import yaml
+
+    with open(config) as f:
+        hyp = dict(yaml.safe_load(f), amp=False)
+    card, card_scores = _validate_scores(hyp, dev)
+    host, host_scores = _validate_scores(hyp, torch.device("cpu"))
+    differ = (card_scores.argmax(-1) != host_scores.argmax(-1)).nonzero().flatten()
+    top2 = host_scores[differ].topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    print(f"fp32 validate, card vs host: F1 {card['primary_F1']:.6f} / {host['primary_F1']:.6f}, "
+          f"token accuracy {card['token_accuracy']:.6f} / {host['token_accuracy']:.6f}, loss "
+          f"{card['loss']:.6f} / {host['loss']:.6f}, max |score diff| "
+          f"{_max_err(card_scores, host_scores):.3e}; {len(differ)} of {len(host_scores)} "
+          f"segments classed otherwise, top-2 margins {[round(m, 6) for m in margins]}")
+    if not abs(card["loss"] - host["loss"]) <= FP32_TRAIN_LOSS_RTOL * abs(host["loss"]):
+        raise AssertionError("fp32 validate: the loss on the card differs from the host's")
+    if len(differ) == 0:
+        if (card["primary_F1"], card["token_accuracy"]) != (host["primary_F1"],
+                                                            host["token_accuracy"]):
+            raise AssertionError("fp32 validate: same classes, other metrics")
+    elif not max(margins) < FP32_MARGIN:
+        raise AssertionError("fp32 validate: a segment away from a tie is classed otherwise")
+
+
+def _step_device_ms(record, state, seed) -> float:
+    """Device ms a train step: the profiler over the driver's step function on
+    the first four batches it took, continuing from ``state``."""
+    from vibertgrid_tpu_torch.train.seeds import step_seeds
+
+    def steps():
+        for batch in record["batches"]:
+            record["step"](state, batch, step_seeds(seed, state.step))
+
+    return _device_total_ms(steps) / len(record["batches"])
+
+
+def learnability(dev, tmp):
+    """tests/test_learnability.py's run through ``driver.train`` on the card."""
+    from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root, synthetic_spec
+    from vibertgrid_tpu_torch.train import driver
+
+    root = make_synthetic_root(os.path.join(tmp, "learn"), n_train=16, n_test=4, n_classes=3,
+                               seed=0)
+    hyp = copy.deepcopy(LEARN_HYP)
+    hyp.update(data_root=root, tokenizer_path=os.path.join(root, "vocab.txt"),
+               save_top=os.path.join(tmp, "learn_w"), save_log=os.path.join(tmp, "learn_l"))
+    t0 = time.perf_counter()
+    results = driver.train(hyp, "sroie", spec=synthetic_spec(), device=dev)
+    print(f"learnability on the card (tiny, fp32, {hyp['end_epoch']} epochs, "
+          f"{time.perf_counter() - t0:.1f} s): "
+          f"best F1 {results['best_F1']:.4f} (> {LEARN_F1}), types learned "
+          f"{results['best_learned_types']} (>= {LEARN_TYPES}), per type "
+          f"{results.get('per_type_F1')}")
+    if not (results["best_F1"] > LEARN_F1 and results["best_learned_types"] >= LEARN_TYPES):
+        raise AssertionError("learnability: the tiny model did not learn the synthetic task")
+
+
+def driver_phase(dev, records):
+    """The training driver and the eval CLI at the flagship's width through
+    ``driver.main`` and ``eval.cli.main``: train, resume, evaluate, the
+    checks and the numbers."""
+    import tempfile
+
+    from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root
+    from vibertgrid_tpu_torch.eval import cli
+    from vibertgrid_tpu_torch.train import driver
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = make_synthetic_root(os.path.join(tmp, "data"), n_train=16, n_test=8, seed=0,
+                                   words_range=(2, 6), segs_range=(8, 16))
+        config = _driver_yaml(tmp, root, "train.yaml")
+        # 1. two epochs through the command line's entry point
+        torch.cuda.reset_peak_memory_stats()
+        with _instrumented(driver) as rec:
+            first = driver.main(["-c", config, "-d", "synthetic"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = _epoch_losses(first)
+        state = first["final_state"]
+        if len(losses) != 16 or state.step != 16 or len(rec["results"]) != 3:
+            raise AssertionError(f"driver: {len(losses)} steps, step {state.step}, "
+                                 f"{len(rec['results'])} validates")
+        _driver_launches(records, rec, "driver")
+        device_ms = _step_device_ms(rec, state, 42)
+        _driver_timings(first, device_ms, "driver")
+        print(f"driver: peak memory {peak:.2f} GiB; losses {', '.join(f'{x:.4f}' for x in losses)}"
+              f"; validate F1 {[round(r['primary_F1'], 4) for r in rec['results']]}")
+        del state, first["final_state"]
+
+        # 2. one more epoch from the last checkpoint saved
+        saved = sorted((e for e in os.listdir(os.path.join(tmp, "weights"))
+                        if e.startswith("epoch")), key=lambda e: int(e.split("_")[0][5:]))
+        epoch = int(saved[-1].split("_")[0][5:])
+        ckpt = os.path.join(tmp, "weights", saved[-1])
+        resume = _driver_yaml(tmp, root, "resume.yaml", weights=ckpt, end_epoch=epoch + 2,
+                              save_top=os.path.join(tmp, "weights2"))
+        with _instrumented(driver) as rec2:
+            second = driver.main(["-c", resume, "-d", "synthetic"])
+        _epoch_losses(second)
+        epochs = [e["epoch"] for e in second["timings"]["train"]]
+        if epochs != [epoch + 1] or second["final_state"].step != 8 * (epoch + 2):
+            raise AssertionError(f"resume from {saved[-1]}: epochs {epochs}, step "
+                                 f"{second['final_state'].step}")
+        _driver_launches(records, rec2, "resumed driver")
+        _driver_timings(second, None, "resumed driver")
+        print(f"resumed from {saved[-1]}: epoch {epoch + 2}, step {second['final_state'].step}")
+        del second
+
+        # 3. the eval CLI on that checkpoint, against the driver's validate of it
+        want = rec["results"][epoch + 1]
+        evaluation = _driver_yaml(tmp, root, "eval.yaml", weights=ckpt,
+                                  result_dir=os.path.join(tmp, "result"))
+        with _instrumented(cli) as rec3:
+            got = cli.main(["-c", evaluation, "-d", "synthetic"])
+        _driver_launches(records, rec3, "eval CLI", kinds=("validate",))
+        preds = lambda r: {k: v["pred"] for k, v in r["per_sample"].items()}
+        same = torch.equal(rec3["classes"][0], rec["classes"][epoch + 1])
+        filled = sum(bool(x) for p in preds(got).values() for x in p[1:])
+        print(f"eval CLI on {saved[-1]}: F1 {got['primary_F1']:.6f}, the driver's validate "
+              f"{want['primary_F1']:.6f}; fields equal: {preds(got) == preds(want)} "
+              f"({filled} filled), every segment's class equal: {same} "
+              f"({len(rec3['classes'][0])} segments, classes "
+              f"{torch.bincount(rec3['classes'][0]).tolist()})")
+        if got["primary_F1"] != want["primary_F1"] or preds(got) != preds(want) or not same:
+            raise AssertionError("eval CLI differs from the driver's validate of its checkpoint")
+        wire = _driver_yaml(tmp, root, "eval_u8.yaml", weights=ckpt, eval_uint8_upload=True,
+                            result_dir=os.path.join(tmp, "result"))
+        u8 = cli.main(["-c", wire, "-d", "synthetic"])
+        print(f"eval CLI, uint8 wire: F1 {u8['primary_F1']:.6f} (tol {UINT8_F1_TOL})")
+        if not abs(u8["primary_F1"] - got["primary_F1"]) <= UINT8_F1_TOL:
+            raise AssertionError("eval CLI: the uint8 wire's F1 is off the fp32 wire's")
+
+        # 4. fp32 validate of the checkpoint, card vs host
+        fp32_validate_card_vs_host(dev, evaluation)
+        torch.cuda.empty_cache()
+
+        # 5. the tiny learnability run
+        learnability(dev, tmp)
+    print(f"driver phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def roi_align_card_vs_host(dev):
     """RoIAlign in fp32, card against host, on boxes whose bins are whole
     numbers of feature pixels (sides of 28·k image pixels at stride 4): there
@@ -1807,8 +2138,9 @@ def main(argv) -> int:
     kernel_modes = [["--only", mode] for mode in KERNEL_MODES]
     if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
-    if argv not in ([], ["--only", "flagship"], ["--only", "serve"], *kernel_modes):
-        print("usage: python3 chip_smoke.py [--only flagship | --only serve | --only "
+    if argv not in ([], ["--only", "flagship"], ["--only", "serve"], ["--only", "driver"],
+                    *kernel_modes):
+        print("usage: python3 chip_smoke.py [--only flagship | --only serve | --only driver | --only "
               f"{'|'.join(KERNEL_MODES)} [--tree DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1840,6 +2172,10 @@ def main(argv) -> int:
         serving(dev, [], full=False)
         print(smi)
         return 0
+    if argv == ["--only", "driver"]:  # the training driver and the eval CLI alone
+        driver_phase(dev, [])
+        print(smi)
+        return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees
         flagship_forward(dev, [])
         flagship_train(dev, [])
@@ -1864,11 +2200,15 @@ def main(argv) -> int:
          "semantic_segmentation_head.binary_bank.weight"))
     fp32_crf_decode_card_vs_host(dev)
     serving(dev, records)
+    driver_phase(dev, records)
 
-    # a kernel's launches: those of this slice's path, a served request
-    # (step 1), where it runs there, else those of the first path that ran it
+    # a kernel's launches: those of this slice's path, a train step of the
+    # driver, else a validate batch of the driver, where it runs there, else
+    # those of the first path that ran it
     for r in records:
-        r["launches"] = r["paths"].get("serving predict", next(iter(r["paths"].values())))
+        paths = r["paths"]
+        r["launches"] = paths.get("driver train step", paths.get(
+            "driver validate batch", next(iter(paths.values()))))
     print("launches by path: " + json.dumps({r["name"]: r["paths"] for r in records}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -42,12 +42,17 @@ def _port_files():
 
 def test_scan_covers_every_sub_package():
     scanned = {p.relative_to(PORT).parts[0] for p in _port_files() if p.is_relative_to(PORT)}
-    assert {"models", "ops", "train", "data", "eval", "serve", "entry.py",
-            "convert.py"} <= scanned
+    assert {"models", "ops", "train", "data", "eval", "serve", "utils", "preprocessing",
+            "entry.py", "convert.py"} <= scanned
     assert {PORT / "train" / "state.py", PORT / "train" / "checkpoint.py",
             PORT / "ops" / "crf.py", PORT / "train" / "driver.py",
             PORT / "models" / "convert_reference.py", PORT / "serve" / "engine.py",
-            PORT / "data" / "transform.py", PORT / "eval" / "entities.py"} <= set(_port_files())
+            PORT / "data" / "transform.py", PORT / "eval" / "entities.py",
+            PORT / "data" / "dataset.py", PORT / "eval" / "harness.py", PORT / "eval" / "cli.py",
+            PORT / "eval" / "seqeval_lite.py", PORT / "eval" / "criteria.py",
+            PORT / "utils" / "logging.py", PORT / "utils" / "visualize.py",
+            *(PORT / "preprocessing" / f"{name}.py"
+              for name in ("common", "sroie", "ephoie", "funsd", "split"))} <= set(_port_files())
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -79,6 +84,8 @@ def test_serve_import_leaves_jax_and_transformers_unloaded():
         "import sys\n"
         "import vibertgrid_tpu_torch.serve, vibertgrid_tpu_torch.data\n"
         "import vibertgrid_tpu_torch.eval, vibertgrid_tpu_torch.train.driver\n"
+        "import vibertgrid_tpu_torch.eval.cli, vibertgrid_tpu_torch.utils.visualize\n"
+        "import vibertgrid_tpu_torch.preprocessing.sroie\n"
         "import vibertgrid_tpu_torch.models.convert_reference\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('transformers',)!r}]\n"
@@ -102,6 +109,19 @@ def test_inference_engine_defaults_to_cuda_and_raises_without_it():
 
     with pytest.raises(RuntimeError, match="cuda"):
         build_all(hyp, "sroie")
+
+
+def test_train_and_evaluate_default_to_cuda_and_raise_without_it(tmp_path):
+    from vibertgrid_tpu_torch.eval.cli import evaluate
+    from vibertgrid_tpu_torch.train.driver import train
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    hyp = {"num_classes": 5, "bert_version": "tiny-bert-test", "backbone": "resnet_18_fpn",
+           "data_root": str(tmp_path), "weights": str(tmp_path), "tee_logs": False}
+    for run in (train, evaluate):
+        with pytest.raises(RuntimeError, match="cuda"):
+            run(hyp, "sroie")
 
 
 def test_entry_defaults_to_cuda_and_raises_without_it():

@@ -1,6 +1,6 @@
-"""Host-side data pipeline: dataset specs, the image transform, bucketed
-collation and the synthetic dataset (port of ``vibertgrid_tpu/data``, the
-parts the serving path needs)."""
+"""Host-side data pipeline: dataset specs, the image transform, the dataset
+reader, bucketed collation, the loaders, the prefetch to the device and the
+synthetic dataset (port of ``vibertgrid_tpu/data``)."""
 
 from vibertgrid_tpu_torch.data.dataset import (  # noqa: F401
     SEG_BUCKETS,
@@ -8,7 +8,13 @@ from vibertgrid_tpu_torch.data.dataset import (  # noqa: F401
     WINDOW,
     Collator,
     EvalAux,
+    KIEDataset,
     Sample,
+    bucketed_eval_loader,
+    compute_mean_std,
+    data_loader,
+    prefetch_to_device,
+    to_device,
 )
 from vibertgrid_tpu_torch.data.spec import (  # noqa: F401
     EPHOIE_SPEC,

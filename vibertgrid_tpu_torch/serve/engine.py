@@ -33,7 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from vibertgrid_tpu_torch.data.dataset import Collator, Sample
+from vibertgrid_tpu_torch.data.dataset import Collator, Sample, to_device
 from vibertgrid_tpu_torch.data.spec import get_spec
 from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.eval.entities import join_entities
@@ -117,12 +117,6 @@ class InferenceEngine:
             batch = dataclasses.replace(batch, images=images)
         return self.model(batch).pred_label
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _make_sample(self, image, texts, boxes) -> Sample:
         tokens, seg_ids, kept_boxes, kept_texts = [], [], [], []
         seg = 0
@@ -194,10 +188,10 @@ class InferenceEngine:
             batch = Batch(**{f.name: pad(getattr(batch, f.name))
                              for f in dataclasses.fields(batch)})
             sizes = pad(sizes)
-        device_batch = Batch(**{f.name: self._upload(getattr(batch, f.name))
+        device_batch = Batch(**{f.name: to_device(getattr(batch, f.name), self.device)
                                 for f in dataclasses.fields(batch)})
         with torch.inference_mode():
-            pred = self._forward(device_batch, self._upload(sizes))
+            pred = self._forward(device_batch, to_device(sizes, self.device))
         return pred, aux, samples, keep
 
     def _finish(self, pred, aux, samples, keep) -> list[dict]:

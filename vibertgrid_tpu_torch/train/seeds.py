@@ -42,6 +42,14 @@ class SeedStream:
         return int(torch.randint(0, _INT32_MAX, (), generator=self._generator))
 
 
+def step_seeds(seed: int, step: int) -> SeedStream:
+    """The seed stream of train step ``step`` of a run seeded with ``seed``:
+    a function of the two alone (the counterpart of
+    ``jax.random.fold_in(key, state.step)``), so a run resumed from a
+    checkpoint draws the seeds that a run without the break would have."""
+    return SeedStream(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
 class ReplaySeeds:
     """A stream that replays a given list of seeds, then raises: for tests
     that must give each site a known seed."""

@@ -1540,12 +1540,12 @@ def _instrumented(*modules):
     """Wrap ``make_train_step``, ``make_eval_step`` and ``validate`` where
     ``modules`` import them: each train step's and each evaluation batch's
     launches (the counts set to 0 just before the call and read just after),
-    each validate's results and each segment's class in it, and the first
-    four train steps' batches."""
+    each validate's results and each valid segment's score row in it, and
+    the first four train steps' batches."""
     from vibertgrid_tpu_torch.ops import kernels
 
-    record = {"train": [], "validate": [], "results": [], "classes": [], "batches": []}
-    classes = []
+    record = {"train": [], "validate": [], "results": [], "scores": [], "batches": []}
+    scores = []
 
     def counting(kind, step):
         def run(*args):
@@ -1556,15 +1556,15 @@ def _instrumented(*modules):
                 record["batches"].append(args[1])
                 record["step"] = step
             if kind == "validate":
-                classes.append(out.pred_label.argmax(-1)[args[1].box_mask].cpu())
+                scores.append(out.pred_label.float()[args[1].box_mask].cpu())
             return out
         return run
 
     def keeping(validate):
         def run(*args, **kw):
-            classes.clear()
+            scores.clear()
             record["results"].append(validate(*args, **kw))
-            record["classes"].append(torch.cat(classes))
+            record["scores"].append(torch.cat(scores))
             return record["results"][-1]
         return run
 
@@ -1611,6 +1611,24 @@ def _driver_launches(records, record, what, kinds=("train", "validate")):
         print(f"{label}: {len(counts)} calls, each {counts[0]}")
 
 
+def _same_evaluation(what, got, want, got_scores, want_scores, need_classes=1):
+    """The eval CLI's results against the driver's validate of the same
+    checkpoint: F1, the fields of every document and every segment's class
+    equal; fails where fewer than ``need_classes`` classes were predicted."""
+    preds = lambda r: {k: v["pred"] for k, v in r.get("per_sample", {}).items()}
+    classes = got_scores.argmax(-1)
+    same = torch.equal(classes, want_scores.argmax(-1))
+    filled = sum(bool(x) for p in preds(got).values() for x in p[1:])
+    print(f"{what}: F1 {got['primary_F1']:.6f}, the driver's validate {want['primary_F1']:.6f}; "
+          f"fields equal: {preds(got) == preds(want)} ({filled} filled), every segment's class "
+          f"equal: {same} ({len(classes)} segments, by class {torch.bincount(classes).tolist()}), "
+          f"max |score difference| {_max_err(got_scores, want_scores):.3e}")
+    if got["primary_F1"] != want["primary_F1"] or preds(got) != preds(want) or not same:
+        raise AssertionError(f"{what}: differs from the driver's validate of the checkpoint")
+    if len(classes.unique()) < need_classes:
+        raise AssertionError(f"{what}: fewer than {need_classes} classes predicted")
+
+
 def _epoch_losses(results):
     losses = [x for e in results["timings"]["train"] for x in e["losses"]]
     if not losses or not all(x == x and abs(x) < 1e4 for x in losses):
@@ -1618,17 +1636,20 @@ def _epoch_losses(results):
     return losses
 
 
-def _driver_timings(results, steps_device_ms, what):
+def _driver_timings(results, replayed, what):
     """The driver's numbers: train docs/s, wall and loader wait a step (each
-    epoch), device ms a step, validate docs/s."""
+    epoch), a step's wall and device ms replayed without the loader, validate
+    docs/s."""
     for e in results["timings"]["train"]:
         n = max(e["steps"], 1)
         print(f"{what} epoch {e['epoch'] + 1}: {e['docs'] / e['wall_s']:.2f} train docs/s, "
               f"{1e3 * e['wall_s'] / n:.2f} ms a step of wall, "
               f"{1e3 * e['loader_wait_s'] / n:.2f} ms a step waiting on the loader "
               f"({e['steps']} steps of batch {e['docs'] // n})")
-    if steps_device_ms is not None:
-        print(f"{what}: device time a train step {steps_device_ms:.2f} ms (profiler, 4 steps)")
+    if replayed is not None:
+        print(f"{what}: the same step on its first 4 batches without the loader: "
+              f"{replayed[0]:.2f} ms a step of wall, {replayed[1]:.2f} ms of device time "
+              f"(profiler)")
     for v in results["timings"]["validate"]:
         print(f"{what} validate (epoch {v['epoch']}): {v['docs'] / v['wall_s']:.2f} docs/s "
               f"({v['docs']} documents, {v['wall_s']:.3f} s)")
@@ -1668,23 +1689,22 @@ def _validate_scores(hyp, device):
     return results, torch.cat(scores)
 
 
-def fp32_validate_card_vs_host(dev, config):
-    """The fp32 validate of one checkpoint on the card (kernels) and on the
-    host (twins)."""
-    import yaml
-
-    with open(config) as f:
-        hyp = dict(yaml.safe_load(f), amp=False)
+def fp32_validate_card_vs_host(dev, hyp, what):
+    """The fp32 validate of the checkpoint ``hyp["weights"]`` on the card
+    (kernels) and on the host (twins)."""
+    hyp = dict(hyp, amp=False)
     card, card_scores = _validate_scores(hyp, dev)
     host, host_scores = _validate_scores(hyp, torch.device("cpu"))
     differ = (card_scores.argmax(-1) != host_scores.argmax(-1)).nonzero().flatten()
     top2 = host_scores[differ].topk(2, dim=-1).values
     margins = (top2[:, 0] - top2[:, 1]).tolist()
-    print(f"fp32 validate, card vs host: F1 {card['primary_F1']:.6f} / {host['primary_F1']:.6f}, "
+    print(f"fp32 validate, {what}, card vs host: F1 {card['primary_F1']:.6f} / "
+          f"{host['primary_F1']:.6f}, "
           f"token accuracy {card['token_accuracy']:.6f} / {host['token_accuracy']:.6f}, loss "
           f"{card['loss']:.6f} / {host['loss']:.6f}, max |score diff| "
           f"{_max_err(card_scores, host_scores):.3e}; {len(differ)} of {len(host_scores)} "
-          f"segments classed otherwise, top-2 margins {[round(m, 6) for m in margins]}")
+          f"segments classed otherwise (by class {torch.bincount(host_scores.argmax(-1)).tolist()}"
+          f" on the host), top-2 margins {[round(m, 6) for m in margins]}")
     if not abs(card["loss"] - host["loss"]) <= FP32_TRAIN_LOSS_RTOL * abs(host["loss"]):
         raise AssertionError("fp32 validate: the loss on the card differs from the host's")
     if len(differ) == 0:
@@ -1695,21 +1715,34 @@ def fp32_validate_card_vs_host(dev, config):
         raise AssertionError("fp32 validate: a segment away from a tie is classed otherwise")
 
 
-def _step_device_ms(record, state, seed) -> float:
-    """Device ms a train step: the profiler over the driver's step function on
-    the first four batches it took, continuing from ``state``."""
+def _replayed_steps(record, state, seed) -> tuple[float, float]:
+    """``(wall ms, device ms)`` a train step of the driver's step function on
+    the first four batches it took, continuing from ``state`` with no loader
+    beside it: the host clock around the four (ending in a synchronize), then
+    the profiler's sum over them; and one step's device time by kernel."""
     from vibertgrid_tpu_torch.train.seeds import step_seeds
 
-    def steps():
-        for batch in record["batches"]:
+    def steps(batches):
+        for batch in batches:
             record["step"](state, batch, step_seeds(seed, state.step))
 
-    return _device_total_ms(steps) / len(record["batches"])
+    n = len(record["batches"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(record["batches"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    device = _device_total_ms(lambda: steps(record["batches"])) / n
+    _device_time_table(lambda: steps(record["batches"][:1]), wall, "one driver train step")
+    return 1e3 * wall, device
 
 
 def learnability(dev, tmp):
-    """tests/test_learnability.py's run through ``driver.train`` on the card."""
+    """tests/test_learnability.py's run through ``driver.train`` on the card;
+    then its best checkpoint through the eval CLI's ``evaluate`` (against the
+    driver's validate of it) and in fp32 on the card and the host."""
     from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root, synthetic_spec
+    from vibertgrid_tpu_torch.eval import cli
     from vibertgrid_tpu_torch.train import driver
 
     root = make_synthetic_root(os.path.join(tmp, "learn"), n_train=16, n_test=4, n_classes=3,
@@ -1718,7 +1751,8 @@ def learnability(dev, tmp):
     hyp.update(data_root=root, tokenizer_path=os.path.join(root, "vocab.txt"),
                save_top=os.path.join(tmp, "learn_w"), save_log=os.path.join(tmp, "learn_l"))
     t0 = time.perf_counter()
-    results = driver.train(hyp, "sroie", spec=synthetic_spec(), device=dev)
+    with _instrumented(driver) as rec:
+        results = driver.train(hyp, "sroie", spec=synthetic_spec(), device=dev)
     print(f"learnability on the card (tiny, fp32, {hyp['end_epoch']} epochs, "
           f"{time.perf_counter() - t0:.1f} s): "
           f"best F1 {results['best_F1']:.4f} (> {LEARN_F1}), types learned "
@@ -1726,6 +1760,16 @@ def learnability(dev, tmp):
           f"{results.get('per_type_F1')}")
     if not (results["best_F1"] > LEARN_F1 and results["best_learned_types"] >= LEARN_TYPES):
         raise AssertionError("learnability: the tiny model did not learn the synthetic task")
+    best = max((e for e in os.listdir(hyp["save_top"]) if e.startswith("epoch")),
+               key=lambda e: float(e.rsplit("_", 1)[-1]))
+    epoch = int(best.split("_")[0][5:])
+    hyp.update(weights=os.path.join(hyp["save_top"], best), eval_batch_size=8,
+               result_dir=os.path.join(tmp, "learn_result"))
+    with _instrumented(cli) as rec_cli:
+        got = cli.evaluate(hyp, "sroie", spec=synthetic_spec(), device=dev)
+    _same_evaluation(f"eval CLI on the learned {best}", got, rec["results"][epoch + 1],
+                     rec_cli["scores"][0], rec["scores"][epoch + 1], need_classes=LEARN_TYPES)
+    fp32_validate_card_vs_host(dev, hyp, "learned tiny model")
 
 
 def driver_phase(dev, records):
@@ -1737,6 +1781,8 @@ def driver_phase(dev, records):
     from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root
     from vibertgrid_tpu_torch.eval import cli
     from vibertgrid_tpu_torch.train import driver
+
+    import yaml
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1754,8 +1800,7 @@ def driver_phase(dev, records):
             raise AssertionError(f"driver: {len(losses)} steps, step {state.step}, "
                                  f"{len(rec['results'])} validates")
         _driver_launches(records, rec, "driver")
-        device_ms = _step_device_ms(rec, state, 42)
-        _driver_timings(first, device_ms, "driver")
+        _driver_timings(first, _replayed_steps(rec, state, 42), "driver")
         print(f"driver: peak memory {peak:.2f} GiB; losses {', '.join(f'{x:.4f}' for x in losses)}"
               f"; validate F1 {[round(r['primary_F1'], 4) for r in rec['results']]}")
         del state, first["final_state"]
@@ -1786,16 +1831,8 @@ def driver_phase(dev, records):
         with _instrumented(cli) as rec3:
             got = cli.main(["-c", evaluation, "-d", "synthetic"])
         _driver_launches(records, rec3, "eval CLI", kinds=("validate",))
-        preds = lambda r: {k: v["pred"] for k, v in r["per_sample"].items()}
-        same = torch.equal(rec3["classes"][0], rec["classes"][epoch + 1])
-        filled = sum(bool(x) for p in preds(got).values() for x in p[1:])
-        print(f"eval CLI on {saved[-1]}: F1 {got['primary_F1']:.6f}, the driver's validate "
-              f"{want['primary_F1']:.6f}; fields equal: {preds(got) == preds(want)} "
-              f"({filled} filled), every segment's class equal: {same} "
-              f"({len(rec3['classes'][0])} segments, classes "
-              f"{torch.bincount(rec3['classes'][0]).tolist()})")
-        if got["primary_F1"] != want["primary_F1"] or preds(got) != preds(want) or not same:
-            raise AssertionError("eval CLI differs from the driver's validate of its checkpoint")
+        _same_evaluation(f"eval CLI on {saved[-1]}", got, want, rec3["scores"][0],
+                         rec["scores"][epoch + 1])
         wire = _driver_yaml(tmp, root, "eval_u8.yaml", weights=ckpt, eval_uint8_upload=True,
                             result_dir=os.path.join(tmp, "result"))
         u8 = cli.main(["-c", wire, "-d", "synthetic"])
@@ -1804,7 +1841,8 @@ def driver_phase(dev, records):
             raise AssertionError("eval CLI: the uint8 wire's F1 is off the fp32 wire's")
 
         # 4. fp32 validate of the checkpoint, card vs host
-        fp32_validate_card_vs_host(dev, evaluation)
+        with open(evaluation) as f:
+            fp32_validate_card_vs_host(dev, yaml.safe_load(f), "flagship width")
         torch.cuda.empty_cache()
 
         # 5. the tiny learnability run

@@ -1541,7 +1541,7 @@ def _instrumented(*modules):
     ``modules`` import them: each train step's and each evaluation batch's
     launches (the counts set to 0 just before the call and read just after),
     each validate's results and each valid segment's score row in it, and
-    the first four train steps' batches."""
+    every train step's batch."""
     from vibertgrid_tpu_torch.ops import kernels
 
     record = {"train": [], "validate": [], "results": [], "scores": [], "batches": []}
@@ -1552,7 +1552,7 @@ def _instrumented(*modules):
             kernels.reset_launch_counts()
             out = step(*args)
             record[kind].append(dict(kernels.LAUNCHES))
-            if kind == "train" and len(record["batches"]) < 4:
+            if kind == "train":
                 record["batches"].append(args[1])
                 record["step"] = step
             if kind == "validate":
@@ -1636,20 +1636,22 @@ def _epoch_losses(results):
     return losses
 
 
-def _driver_timings(results, replayed, what):
-    """The driver's numbers: train docs/s, wall and loader wait a step (each
-    epoch), a step's wall and device ms replayed without the loader, validate
-    docs/s."""
+def _driver_timings(results, record, seed, what, device_ms=None):
+    """The driver's numbers: each epoch's train docs/s, wall and loader wait
+    a step, beside the wall a step of the same batches replayed afterwards
+    without the loader; device ms a step; validate docs/s."""
+    state, at = results["final_state"], 0
     for e in results["timings"]["train"]:
         n = max(e["steps"], 1)
+        replay = _replay_ms(record, state, seed, record["batches"][at:at + n])
+        at += n
         print(f"{what} epoch {e['epoch'] + 1}: {e['docs'] / e['wall_s']:.2f} train docs/s, "
               f"{1e3 * e['wall_s'] / n:.2f} ms a step of wall, "
               f"{1e3 * e['loader_wait_s'] / n:.2f} ms a step waiting on the loader "
-              f"({e['steps']} steps of batch {e['docs'] // n})")
-    if replayed is not None:
-        print(f"{what}: the same step on its first 4 batches without the loader: "
-              f"{replayed[0]:.2f} ms a step of wall, {replayed[1]:.2f} ms of device time "
-              f"(profiler)")
+              f"({e['steps']} steps of batch {e['docs'] // n}); the same batches replayed "
+              f"without the loader {replay:.2f} ms a step of wall")
+    if device_ms is not None:
+        print(f"{what}: device time a train step {device_ms:.2f} ms (profiler, 4 steps)")
     for v in results["timings"]["validate"]:
         print(f"{what} validate (epoch {v['epoch']}): {v['docs'] / v['wall_s']:.2f} docs/s "
               f"({v['docs']} documents, {v['wall_s']:.3f} s)")
@@ -1715,26 +1717,32 @@ def fp32_validate_card_vs_host(dev, hyp, what):
         raise AssertionError("fp32 validate: a segment away from a tie is classed otherwise")
 
 
-def _replayed_steps(record, state, seed) -> tuple[float, float]:
-    """``(wall ms, device ms)`` a train step of the driver's step function on
-    the first four batches it took, continuing from ``state`` with no loader
-    beside it: the host clock around the four (ending in a synchronize), then
-    the profiler's sum over them; and one step's device time by kernel."""
+def _replay_ms(record, state, seed, batches) -> float:
+    """Wall ms a step of the driver's step function over ``batches`` again,
+    continuing from ``state``, with no loader beside it (ending in a
+    synchronize)."""
+    from vibertgrid_tpu_torch.train.seeds import step_seeds
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        record["step"](state, batch, step_seeds(seed, state.step))
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / len(batches)
+
+
+def _replayed_device_ms(record, state, seed) -> float:
+    """Device ms a train step over the run's first four batches (profiler),
+    and one step's device time by kernel."""
     from vibertgrid_tpu_torch.train.seeds import step_seeds
 
     def steps(batches):
         for batch in batches:
             record["step"](state, batch, step_seeds(seed, state.step))
 
-    n = len(record["batches"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps(record["batches"])
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / n
-    device = _device_total_ms(lambda: steps(record["batches"])) / n
+    wall = _replay_ms(record, state, seed, record["batches"][:1]) / 1e3
     _device_time_table(lambda: steps(record["batches"][:1]), wall, "one driver train step")
-    return 1e3 * wall, device
+    return _device_total_ms(lambda: steps(record["batches"][:4])) / 4
 
 
 def learnability(dev, tmp):
@@ -1778,11 +1786,11 @@ def driver_phase(dev, records):
     checks and the numbers."""
     import tempfile
 
+    import yaml
+
     from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root
     from vibertgrid_tpu_torch.eval import cli
     from vibertgrid_tpu_torch.train import driver
-
-    import yaml
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1800,7 +1808,7 @@ def driver_phase(dev, records):
             raise AssertionError(f"driver: {len(losses)} steps, step {state.step}, "
                                  f"{len(rec['results'])} validates")
         _driver_launches(records, rec, "driver")
-        _driver_timings(first, _replayed_steps(rec, state, 42), "driver")
+        _driver_timings(first, rec, 42, "driver", _replayed_device_ms(rec, state, 42))
         print(f"driver: peak memory {peak:.2f} GiB; losses {', '.join(f'{x:.4f}' for x in losses)}"
               f"; validate F1 {[round(r['primary_F1'], 4) for r in rec['results']]}")
         del state, first["final_state"]
@@ -1819,10 +1827,10 @@ def driver_phase(dev, records):
         if epochs != [epoch + 1] or second["final_state"].step != 8 * (epoch + 2):
             raise AssertionError(f"resume from {saved[-1]}: epochs {epochs}, step "
                                  f"{second['final_state'].step}")
-        _driver_launches(records, rec2, "resumed driver")
-        _driver_timings(second, None, "resumed driver")
         print(f"resumed from {saved[-1]}: epoch {epoch + 2}, step {second['final_state'].step}")
-        del second
+        _driver_launches(records, rec2, "resumed driver")
+        _driver_timings(second, rec2, 42, "resumed driver")
+        del second, rec2
 
         # 3. the eval CLI on that checkpoint, against the driver's validate of it
         want = rec["results"][epoch + 1]

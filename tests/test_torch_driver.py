@@ -14,8 +14,8 @@ roots); the JAX driver is not run, so no JAX train step compiles.
 - the full head on the fused attention epilogue takes two steps.
 
 The learnability run of ``tests/test_learnability.py`` (24 epochs) takes
-minutes on this CPU; ``chip_smoke.py``'s driver phase runs it on the card
-(its config is held to the test's here).
+minutes on a CPU; ``chip_smoke.py``'s driver phase runs it on the card, and
+the last test holds its config to the learnability test's.
 """
 
 import os

@@ -20,9 +20,7 @@
 The JAX eval step compiles for two batch signatures; no train step compiles.
 """
 
-import dataclasses
 import json
-import os
 from types import SimpleNamespace
 
 import jax
@@ -43,8 +41,12 @@ from vibertgrid_tpu.train.driver import build_tokenizer as jax_build_tokenizer
 from vibertgrid_tpu.train.state import TrainState as JaxTrainState
 from vibertgrid_tpu.train.state import make_eval_step as jax_make_eval_step
 from vibertgrid_tpu_torch.convert import from_flax
-from vibertgrid_tpu_torch.data.dataset import EvalAux, KIEDataset, bucketed_eval_loader
-from vibertgrid_tpu_torch.data.dataset import prefetch_to_device
+from vibertgrid_tpu_torch.data.dataset import (
+    EvalAux,
+    KIEDataset,
+    bucketed_eval_loader,
+    prefetch_to_device,
+)
 from vibertgrid_tpu_torch.data.spec import SROIE_SPEC as PORT_SROIE_SPEC
 from vibertgrid_tpu_torch.data.synthetic import synthetic_spec as port_spec
 from vibertgrid_tpu_torch.eval import criteria, harness, seqeval_lite

@@ -1,6 +1,6 @@
 """Token- and pixel-level metric kernels.
 
-Numpy ports of ``/root/reference/pipeline/criteria.py`` (the seqeval-based
+Numpy ports of ViBERTgrid-PyTorch's ``pipeline/criteria.py`` (the seqeval-based
 ``BIO_F1_criteria`` lives in :mod:`vibertgrid_tpu_torch.eval.seqeval_lite`
 instead). Semantics are preserved exactly, including the reference's
 ``.int()`` truncation of probability scores in :func:`token_F1_criteria`.

@@ -1,7 +1,7 @@
 """Entity-level sequence-labeling metrics, compatible with seqeval defaults.
 
 The reference depends on the ``seqeval`` package
-(``/root/reference/pipeline/criteria.py:24-52``); it is not available here,
+(ViBERTgrid-PyTorch's ``pipeline/criteria.py:24-52``); this package does not,
 so this is a from-scratch implementation of the same metric: conlleval-style
 chunk extraction (lenient BIO/IOBES start/end rules, seqeval's default
 scheme) and micro/macro/weighted precision/recall/F1 over exact entity

@@ -1,6 +1,6 @@
 """EPHOIE label generation.
 
-Port of ``/root/reference/pipeline/ephoie_data_preprocessing.py``: the EPHOIE
+Port of ViBERTgrid-PyTorch's ``pipeline/ephoie_data_preprocessing.py``: the EPHOIE
 annotations are per-image json dicts of segments with a quad ``box``, the
 ``string``, a per-char ``tag`` list and a KEY/VALUE ``class``. Emitters:
 

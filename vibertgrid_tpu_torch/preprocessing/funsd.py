@@ -1,6 +1,6 @@
 """FUNSD label generation.
 
-Port of ``/root/reference/pipeline/funsd_data_preprocessing.py``: parse the
+Port of ViBERTgrid-PyTorch's ``pipeline/funsd_data_preprocessing.py``: parse the
 FUNSD JSON annotations into per-image CSVs at word level (:12-47) or segment
 level (:50-88), for both training_data/ and testing_data/.
 

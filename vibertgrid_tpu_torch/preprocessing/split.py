@@ -1,6 +1,6 @@
 """Train/validate split utilities.
 
-Port of ``/root/reference/utils/data_train_val_spilt.py`` (move a random 30%
+Port of ViBERTgrid-PyTorch's ``utils/data_train_val_spilt.py`` (move a random 30%
 of train files into validate/) and ``utils/data_de_spilt.py`` (move them
 back and delete validate/), generalized: any sibling label dirs that exist
 (image/label/key/class/ocr_result/pos_neg) move together.

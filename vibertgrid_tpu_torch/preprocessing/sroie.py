@@ -1,6 +1,6 @@
 """SROIE label generation.
 
-Port of ``/root/reference/pipeline/sroie_data_preprocessing.py``: per-image
+Port of ViBERTgrid-PyTorch's ``pipeline/sroie_data_preprocessing.py``: per-image
 bbox txt files (``x0,y0,x1,y1,x2,y2,x3,y3,text``) + key-info json → CSV
 labels, recovering per-box classes by cosine similarity of CountVectorizer
 vectors against the key strings plus date/total regex matching (:94-296);

@@ -1,10 +1,10 @@
 """Logging utilities.
 
 - :class:`TerminalLogger`: tee stdout to a logfile
-  (``/root/reference/pipeline/train_val_utils.py:40-51``).
+  (ViBERTgrid-PyTorch's ``pipeline/train_val_utils.py:40-51``).
 - :class:`MetricsLogger`: TensorBoard scalar groups with a step counter
-  (``pipeline/train_val_utils.py:54-80``); degrades to JSONL when
-  tensorboard is unavailable.
+  (``pipeline/train_val_utils.py:54-80``); JSONL where
+  ``torch.utils.tensorboard`` cannot be imported.
 - :func:`setup_seed`: the determinism knob
   (``pipeline/distributed_utils.py:8-13``): seeds Python, numpy and torch's
   default generators. The model's weights and every dropout and sampled loss
@@ -45,10 +45,10 @@ class MetricsLogger:
         self._jsonl = None
         try:
             from torch.utils.tensorboard import SummaryWriter
-
-            self._writer = SummaryWriter(log_dir=logdir, comment=comment)
-        except Exception:
+        except ImportError:  # no tensorboard installed
             self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
+        else:
+            self._writer = SummaryWriter(log_dir=logdir, comment=comment)
 
     def set_step(self, step: int | None = None):
         self.step = self.step + 1 if step is None else step

@@ -1,6 +1,6 @@
 """Visualization diagnostics.
 
-Port of ``/root/reference/utils/ViBERTgrid_visualize.py``: grid heatmap
+Port of ViBERTgrid-PyTorch's ``utils/ViBERTgrid_visualize.py``: grid heatmap
 panels (:145-169), the 4-panel inference visualization (:172-206), and
 class-colored box drawing saved to ``inference_result.jpg`` (:209-268).
 Inputs are numpy arrays (or CPU tensors) in the NHWC layout. matplotlib/PIL

@@ -31,6 +31,17 @@ from vibertgrid_tpu_torch.train import driver
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """The suite runs six workers on the machine's cores; torch's default of
+    a thread a core in each makes their CPU kernels wait on each other, so
+    this module's training runs take two."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _hyp(tmp_path, root, **kw):
     hyp = tiny_hyp(root)
     hyp.update(save_top=str(tmp_path / "w"), save_log=str(tmp_path / "l"), **kw)

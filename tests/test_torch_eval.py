@@ -62,6 +62,17 @@ EQUAL_KEYS = ("primary_F1", "F1", "token_F1", "token_accuracy", "per_type_F1")
 TAGS = ["O", "B-company", "I-company", "B-date", "I-date", "B-total", "I-total"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """The suite runs six workers on the machine's cores; torch's default of
+    a thread a core in each makes their CPU kernels wait on each other, so
+    this module's forwards take two."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tag_seqs(seed, n=12):
     rng = np.random.default_rng(seed)
     return [[str(t) for t in rng.choice(TAGS, int(rng.integers(0, 9)))] for _ in range(n)]

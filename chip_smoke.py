@@ -1858,6 +1858,363 @@ def driver_phase(dev, records):
     print(f"driver phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- the distributed layer: ranks as subprocesses of this script ----
+
+# NCCL refuses two ranks on one device and the machine has one card, so the
+# two-rank runs join over gloo (every collective through the host) with both
+# ranks on the card; a world of one on NCCL checks that bootstrap. The
+# numbers describe that setup, not NCCL across cards.
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 480
+DIST_BF16_STEPS = 5
+# fp32 at full width, two ranks x 1 document against one process x 2 on the
+# card: the loss within FP32_TRAIN_LOSS_RTOL, these gradients within
+# FP32_TRAIN_GRAD_RTOL in norm (the same sums in other orders: the global
+# BatchNorm statistics and the loss's sums are the two ranks' partial sums)
+DIST_GRADS = ("bert_model.layer.0.attention.query.weight", "bert_model.layer.11.intermediate.weight",
+              "bert_model.word_embeddings.weight", "backbone.stem_conv.weight",
+              "backbone.early_fusion.weight", "backbone.stem_bn.weight",
+              "late_fusion.roi_embedding.bn1.weight", "field_type_head.category_net.out.weight",
+              "semantic_segmentation_head.encoder.conv1.weight")
+
+
+def _fp32_dist_config(ohem_random: bool):
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN
+
+    text = dataclasses.replace(FLAGSHIP_TRAIN.resolved_text_config(), hidden_dropout=0.0,
+                               attention_dropout=0.0)
+    return dataclasses.replace(FLAGSHIP_TRAIN, compute_dtype=torch.float32, text_config=text,
+                               ohem_random=ohem_random)
+
+
+def _fp32_dist_step(dev, ohem_random: bool, share=None):
+    """One fp32 train step at full width from seed 6 on batch 2 (or the share
+    ``(rank, world)`` of it): ``(loss, {name: gradient on the host}, state)``."""
+    from vibertgrid_tpu_torch.entry import TRAIN_SHAPE, train_entry
+    from vibertgrid_tpu_torch.parallel.mesh import shard_batch
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    state, train_step, batch = train_entry(device=dev, seed=6, config=_fp32_dist_config(ohem_random),
+                                           shape=dict(TRAIN_SHAPE, b=2))
+    if share is not None:
+        batch = shard_batch(batch, *share)
+    _, loss = train_step(state, batch, SeedStream(7))
+    grads = {n: state.model.get_parameter(n).grad.detach().cpu() for n in DIST_GRADS}
+    return loss.item(), grads, state
+
+
+def _flat_params_equal(model) -> bool:
+    """Whether every rank holds rank 0's parameters bit for bit."""
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    theirs = flat.clone()
+    dist.broadcast(theirs, 0)
+    return torch.equal(flat, theirs)
+
+
+def _rank_fp32(dev, tmp, rank, world):
+    want = torch.load(os.path.join(tmp, "fp32_reference.pt"), weights_only=False)
+    out = {}
+    for ohem_random in (False, True):
+        loss, grads, state = _fp32_dist_step(dev, ohem_random, (rank, world))
+        ref = want[ohem_random]
+        out[ohem_random] = dict(
+            loss=loss, want=ref["loss"], equal=_flat_params_equal(state.model),
+            errs={n: ((g - ref["grads"][n]).norm() / ref["grads"][n].norm()).item()
+                  for n, g in grads.items()})
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_bf16(dev, tmp, rank, world):
+    """The flagship bf16 step at bench.py's shapes, 8 documents a rank,
+    dropout 0.1, without and with ZeRO-1: each step's launches, ms a step,
+    device ms, the gradient all-reduce's ms, peak memory, optimizer-state
+    bytes."""
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, train_entry
+    from vibertgrid_tpu_torch.ops import kernels
+    from vibertgrid_tpu_torch.parallel.mesh import shard_batch
+    from vibertgrid_tpu_torch.parallel.sharding import shard_optimizer_state, state_bytes
+    from vibertgrid_tpu_torch.train import state as state_module
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    average, reduce_ms = state_module.average_gradients, []
+
+    def timed_average(grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average(grads)
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+
+    state_module.average_gradients = timed_average
+    out = {}
+    try:
+        for zero1 in (False, True):
+            state, train_step, batch = train_entry(device=dev, seed=0, config=FLAGSHIP_TRAIN)
+            batch = shard_batch(batch, rank, world)
+            full = state_bytes(state.optimizer)
+            if zero1:
+                shard_optimizer_state(state.optimizer, rank, world)
+            seeds, launches, losses = SeedStream(0), [], []
+
+            def step():
+                kernels.reset_launch_counts()
+                _, loss = train_step(state, batch, seeds)
+                torch.cuda.synchronize()
+                launches.append(dict(kernels.LAUNCHES))
+                losses.append(loss.item())
+
+            step()  # warm
+            torch.cuda.reset_peak_memory_stats()
+            reduce_ms.clear()
+            t0 = time.perf_counter()
+            for _ in range(DIST_BF16_STEPS):
+                step()
+            ms = 1e3 * (time.perf_counter() - t0) / DIST_BF16_STEPS
+            reduce = statistics.median(reduce_ms)
+            device_ms = _device_total_ms(step)
+            out[zero1] = dict(ms=ms, device_ms=device_ms, reduce_ms=reduce, launches=launches,
+                              losses=losses, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                              state_bytes=state_bytes(state.optimizer), replicated_bytes=full,
+                              equal=_flat_params_equal(state.model))
+            del state, batch
+            torch.cuda.empty_cache()
+    finally:
+        state_module.average_gradients = average
+    return out
+
+
+def _rank_driver(dev, tmp, rank, world):
+    """``driver.main`` on the synthetic root for one epoch, replicated and
+    with ZeRO-1: losses, the gathered F1 and fields, each step's and each
+    validate batch's launches, the last validate's score rows, timings."""
+    from vibertgrid_tpu_torch.train import driver
+
+    out = {}
+    for name in ("replicated", "zero1"):
+        with _instrumented(driver) as rec:
+            res = driver.main(["-c", os.path.join(tmp, f"dist_{name}.yaml"), "-d", "synthetic"])
+        out[name] = dict(
+            losses=_epoch_losses(res), f1=res["primary_F1"],
+            fields={k: v["pred"] for k, v in res["per_sample"].items()},
+            train=rec["train"], validate=rec["validate"], scores=rec["scores"][-1],
+            timings=res["timings"], steps=res["final_state"].step)
+        del res, rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_nccl(dev, tmp, rank, world):
+    """A world of one on NCCL: one all-reduce and the flagship bf16 train step
+    through the data-parallel step (its gradient all-reduce on NCCL)."""
+    import torch.distributed as dist
+
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, train_entry
+    from vibertgrid_tpu_torch.ops import kernels
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    x = torch.full((4,), 1.5, device=dev)
+    dist.all_reduce(x)
+    state, train_step, batch = train_entry(device=dev, seed=0, config=FLAGSHIP_TRAIN)
+    kernels.reset_launch_counts()
+    _, loss = train_step(state, batch, SeedStream(0))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        train_step(state, batch, SeedStream(1))
+    torch.cuda.synchronize()
+    return dict(backend=dist.get_backend(), reduced=x.tolist(), loss=loss.item(),
+                launches=launches, ms=1e3 * (time.perf_counter() - t0) / 3)
+
+
+RANK_PARTS = {"nccl": (_rank_nccl,), "gloo": (_rank_fp32, _rank_bf16, _rank_driver)}
+
+
+def rank_main(part: str, tmp: str) -> int:
+    """One rank of the distributed phase (``--rank PART DIR``): joins the
+    group the environment describes (gloo for two ranks on one card), runs
+    the part and writes its results to ``DIR/PART_<rank>.pt``."""
+    import torch.distributed as dist
+
+    from vibertgrid_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = int(os.environ["WORLD_SIZE"])
+    mesh.init_distributed_mode(backend="gloo" if world > 1 else None)
+    rank = mesh.get_rank()
+    dev = torch.device("cuda", mesh.local_device_index())
+    torch.cuda.set_device(dev)
+    out = {fn.__name__: fn(dev, tmp, rank, world) for fn in RANK_PARTS[part]}
+    torch.save(out, os.path.join(tmp, f"{part}_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(part: str, tmp: str, world: int) -> list:
+    """Run ``part`` in ``world`` rank processes of this script on the card; their
+    results in rank order. A rank that fails stops the others and fails the
+    phase, with every rank's last lines."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [open(os.path.join(tmp, f"{part}_{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", part, tmp], cwd=HERE,
+        stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+        for r in range(world)]
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode != 0 for p in procs):
+        for r, p in enumerate(procs):
+            with open(os.path.join(tmp, f"{part}_{r}.log")) as f:
+                tail = f.read()[-4000:]
+            print(f"--- {part} rank {r} exited {p.returncode}:\n{tail}")
+        raise AssertionError(f"distributed {part}: a rank failed")
+    return [torch.load(os.path.join(tmp, f"{part}_{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _sorted_rows(x: torch.Tensor) -> torch.Tensor:
+    """The rows of ``x`` in lexicographic order (one order for equal sets)."""
+    for c in reversed(range(x.shape[1])):
+        x = x[torch.sort(x[:, c], stable=True).indices]
+    return x
+
+
+def distributed_phase(dev, records):
+    """Step 10: the distributed layer on the card, ranks as subprocesses."""
+    import gc
+    import tempfile
+
+    from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root
+    from vibertgrid_tpu_torch.eval import cli
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. NCCL, a world of one
+        (nccl,) = (r["_rank_nccl"] for r in _spawn_ranks("nccl", tmp, 1))
+        _assert_launches(records, nccl["launches"], TRAIN_LAUNCHES, "distributed NCCL train step")
+        print(f"distributed, NCCL world of 1: backend {nccl['backend']}, all_reduce "
+              f"{nccl['reduced']}, flagship bf16 B={B} step loss {nccl['loss']:.4f}, "
+              f"{nccl['ms']:.2f} ms a step")
+        if nccl["backend"] != "nccl" or nccl["reduced"] != [1.5] * 4 or not nccl["loss"] < 1e4:
+            raise AssertionError("distributed: the NCCL bootstrap or its step failed")
+
+        # the one-process fp32 references, and the driver's data and configs
+        torch.save({ohem: dict(zip(("loss", "grads"), _fp32_dist_step(dev, ohem)[:2]))
+                    for ohem in (False, True)}, os.path.join(tmp, "fp32_reference.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        root = make_synthetic_root(os.path.join(tmp, "data"), n_train=16, n_test=8, seed=0,
+                                   words_range=(2, 6), segs_range=(8, 16))
+        for name, extra in (("replicated", {}), ("zero1", {"zero1": True})):
+            _driver_yaml(tmp, root, f"dist_{name}.yaml", end_epoch=1, eval_batch_size=1,
+                         dist_backend="gloo", save_top=os.path.join(tmp, f"weights_{name}"),
+                         **extra)
+        ranks = _spawn_ranks("gloo", tmp, DIST_WORLD)
+
+        # 2. fp32 at full width: two ranks x 1 document against one process x 2
+        for ohem in (False, True):
+            got = [r["_rank_fp32"][ohem] for r in ranks]
+            errs = {n: max(g["errs"][n] for g in got) for n in DIST_GRADS}
+            print(f"distributed fp32, ohem_random={ohem}: loss {got[0]['loss']:.6f} / "
+                  f"{got[1]['loss']:.6f} on the ranks, one process {got[0]['want']:.6f}; "
+                  f"largest gradient error {max(errs.values()):.3e} "
+                  f"({max(errs, key=errs.get)}); parameters bit-equal across ranks: "
+                  f"{all(g['equal'] for g in got)}")
+            for g in got:
+                if not abs(g["loss"] - g["want"]) <= FP32_TRAIN_LOSS_RTOL * abs(g["want"]):
+                    raise AssertionError(f"distributed fp32: loss {g['loss']} vs {g['want']}")
+            if not max(errs.values()) <= FP32_TRAIN_GRAD_RTOL or not all(g["equal"] for g in got):
+                raise AssertionError(f"distributed fp32: gradients {errs} or parameters differ")
+
+        # 3. bf16 at bench.py's shapes, 8 documents a rank, without and with ZeRO-1
+        for zero1 in (False, True):
+            what = f"distributed bf16 train step{', ZeRO-1' if zero1 else ''}"
+            for rank, r in enumerate(ranks):
+                b = r["_rank_bf16"][zero1]
+                for launches in b["launches"]:
+                    _assert_launches(records, launches, TRAIN_LAUNCHES, f"{what} (rank {rank})")
+                print(f"{what}, rank {rank} of {DIST_WORLD} (gloo, one card), {B // DIST_WORLD} "
+                      f"documents a rank: {b['ms']:.2f} ms a step, {B / b['ms'] * 1e3:.2f} global "
+                      f"docs/s, device {b['device_ms']:.2f} ms a step (profiler), gradient "
+                      f"all-reduce {b['reduce_ms']:.2f} ms (median), peak memory "
+                      f"{b['peak_gib']:.2f} GiB, optimizer state {b['state_bytes'] / 2**20:.1f} MiB "
+                      f"of {b['replicated_bytes'] / 2**20:.1f} MiB; losses "
+                      f"{', '.join(f'{x:.4f}' for x in b['losses'])}")
+                if not (all(x == x and abs(x) < 1e4 for x in b["losses"]) and b["equal"]):
+                    raise AssertionError(f"{what}: losses {b['losses']}, ranks equal {b['equal']}")
+            if ranks[0]["_rank_bf16"][zero1]["losses"] != ranks[1]["_rank_bf16"][zero1]["losses"]:
+                raise AssertionError(f"{what}: the ranks report other losses")
+        kept = [r["_rank_bf16"][True]["state_bytes"] / r["_rank_bf16"][True]["replicated_bytes"]
+                for r in ranks]
+        if not all(0.45 < k < 0.6 for k in kept):
+            raise AssertionError(f"ZeRO-1: each rank keeps {kept} of the optimizer state")
+
+        # 4. driver.main on two ranks, then the eval CLI in one process
+        for name in ("replicated", "zero1"):
+            got = [r["_rank_driver"][name] for r in ranks]
+            for rank, g in enumerate(got):
+                for kind, want in (("train", TRAIN_LAUNCHES), ("validate", SERVE_LAUNCHES)):
+                    label = f"distributed driver {kind} {'step' if kind == 'train' else 'batch'}"
+                    for launches in g[kind]:
+                        _assert_launches(records, launches, want, f"{label} (rank {rank})")
+            a, b = got
+            if a["losses"] != b["losses"] or a["f1"] != b["f1"] or a["fields"] != b["fields"]:
+                raise AssertionError(f"distributed driver ({name}): the ranks disagree")
+            saved = [e for e in os.listdir(os.path.join(tmp, f"weights_{name}"))
+                     if e.startswith("epoch")]
+            if len(saved) != 1:
+                raise AssertionError(f"distributed driver ({name}): checkpoints {saved}")
+            t = a["timings"]["train"][0]
+            val = ", ".join(f"{x['docs'] / x['wall_s']:.2f}" for x in a["timings"]["validate"])
+            print(f"distributed driver ({name}, 2 ranks x batch 2, gloo): {t['steps']} steps, "
+                  f"{t['docs'] / t['wall_s']:.2f} global train docs/s ({t['wall_s']:.2f} s, "
+                  f"{t['loader_wait_s']:.2f} s waiting on the loader), validate {val} docs/s "
+                  f"(initial, final); losses {', '.join(f'{x:.4f}' for x in a['losses'])}; "
+                  f"F1 {a['f1']:.6f} on both ranks")
+            if name == "replicated":
+                evaluation = _driver_yaml(tmp, root, "dist_eval.yaml", eval_batch_size=1,
+                                          weights=os.path.join(tmp, f"weights_{name}", saved[0]),
+                                          result_dir=os.path.join(tmp, "result"))
+                with _instrumented(cli) as rec:
+                    res = cli.main(["-c", evaluation, "-d", "synthetic"])
+                ours = _sorted_rows(rec["scores"][0])
+                theirs = _sorted_rows(torch.cat([r["_rank_driver"][name]["scores"]
+                                                 for r in ranks]))
+                fields = {k: v["pred"] for k, v in res["per_sample"].items()}
+                same = torch.equal(ours.argmax(-1), theirs.argmax(-1))
+                print(f"eval CLI (one process) on {saved[0]}: F1 {res['primary_F1']:.6f}, the "
+                      f"ranks' gathered validate {a['f1']:.6f}; fields equal: "
+                      f"{fields == a['fields']}; every segment's class equal: {same} "
+                      f"({len(ours)} segments, max |score difference| "
+                      f"{_max_err(ours, theirs):.3e})")
+                if res["primary_F1"] != a["f1"] or fields != a["fields"] or not same:
+                    raise AssertionError("eval CLI: differs from the gathered validate")
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def roi_align_card_vs_host(dev):
     """RoIAlign in fp32, card against host, on boxes whose bins are whole
     numbers of feature pixels (sides of 28·k image pixels at stride 4): there
@@ -2184,15 +2541,20 @@ def main(argv) -> int:
     kernel_modes = [["--only", mode] for mode in KERNEL_MODES]
     if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
-    if argv not in ([], ["--only", "flagship"], ["--only", "serve"], ["--only", "driver"],
-                    *kernel_modes):
-        print("usage: python3 chip_smoke.py [--only flagship | --only serve | --only driver | --only "
-              f"{'|'.join(KERNEL_MODES)} [--tree DIR]]", file=sys.stderr)
+    rank_mode = len(argv) == 3 and argv[0] == "--rank" and argv[1] in RANK_PARTS
+    if not rank_mode and argv not in ([], ["--only", "flagship"], ["--only", "serve"],
+                                      ["--only", "driver"], ["--only", "distributed"],
+                                      *kernel_modes):
+        print("usage: python3 chip_smoke.py [--only flagship | --only serve | --only driver | "
+              f"--only distributed | --only {'|'.join(KERNEL_MODES)} [--tree DIR]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 1
     sys.path.insert(0, tree)
+    if rank_mode:  # one rank of the distributed phase, started by it
+        return rank_main(argv[1], argv[2])
     from vibertgrid_tpu_torch.ops import kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2222,6 +2584,10 @@ def main(argv) -> int:
         driver_phase(dev, [])
         print(smi)
         return 0
+    if argv == ["--only", "distributed"]:  # step 10 alone
+        distributed_phase(dev, [])
+        print(smi)
+        return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees
         flagship_forward(dev, [])
         flagship_train(dev, [])
@@ -2247,6 +2613,7 @@ def main(argv) -> int:
     fp32_crf_decode_card_vs_host(dev)
     serving(dev, records)
     driver_phase(dev, records)
+    distributed_phase(dev, records)
 
     # a kernel's launches: those of this slice's path, a train step of the
     # driver, else a validate batch of the driver, where it runs there, else

@@ -10,7 +10,8 @@ roots); the JAX driver is not run, so no JAX train step compiles.
 - the CRF head with BIO tags trains and validates with seqeval; with strcmp
   it raises;
 - ``main`` on ``configs/synthetic_smoke.yaml`` with ``-d synthetic``;
-- the keys of the distributed layer raise;
+- the keys of the distributed layer in one process: ``zero1`` trains as
+  without it, the others raise;
 - the full head on the fused attention epilogue takes two steps.
 
 The learnability run of ``tests/test_learnability.py`` (24 epochs) takes
@@ -137,13 +138,26 @@ def test_main_on_the_smoke_config(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("key, value", [("zero1", True), ("mesh_data", 2), ("mesh_model", 2),
                                         ("WORLD_SIZE", "2")])
-def test_distributed_keys_raise(root, tmp_path, monkeypatch, key, value):
+def test_distributed_keys_raise(root, tmp_path, monkeypatch, key, value, runs):
+    """In one process: ``zero1`` trains as without it (the JAX driver's
+    ZeRO-1 on a data axis of 1); a data axis of 2 raises, tensor parallelism
+    raises ``NotImplementedError`` (not ported); ``WORLD_SIZE=2`` with no
+    rendezvous raises instead of training alone. Two processes train in
+    ``tests/test_torch_parallel.py``."""
     hyp = _hyp(tmp_path, root)
     if key == "WORLD_SIZE":
         monkeypatch.setenv(key, value)
     else:
         hyp[key] = value
-    with pytest.raises(NotImplementedError, match="distributed"):
+    if key == "zero1":
+        results = driver.train(hyp, "sroie", spec=synthetic_spec(), max_steps=2, device="cpu")
+        assert _losses(results) == _losses(runs["first"])
+        assert not results["final_state"].optimizer.shards
+        return
+    raises = {"mesh_data": (ValueError, "mesh_data=2"),
+              "mesh_model": (NotImplementedError, "tensor parallelism"),
+              "WORLD_SIZE": (RuntimeError, "rendezvous")}[key]
+    with pytest.raises(raises[0], match=raises[1]):
         driver.train(hyp, "sroie", spec=synthetic_spec(), device="cpu")
 
 

@@ -43,7 +43,7 @@ def _port_files():
 def test_scan_covers_every_sub_package():
     scanned = {p.relative_to(PORT).parts[0] for p in _port_files() if p.is_relative_to(PORT)}
     assert {"models", "ops", "train", "data", "eval", "serve", "utils", "preprocessing",
-            "entry.py", "convert.py"} <= scanned
+            "parallel", "entry.py", "convert.py"} <= scanned
     assert {PORT / "train" / "state.py", PORT / "train" / "checkpoint.py",
             PORT / "ops" / "crf.py", PORT / "train" / "driver.py",
             PORT / "models" / "convert_reference.py", PORT / "serve" / "engine.py",
@@ -51,6 +51,7 @@ def test_scan_covers_every_sub_package():
             PORT / "data" / "dataset.py", PORT / "eval" / "harness.py", PORT / "eval" / "cli.py",
             PORT / "eval" / "seqeval_lite.py", PORT / "eval" / "criteria.py",
             PORT / "utils" / "logging.py", PORT / "utils" / "visualize.py",
+            *(PORT / "parallel" / f"{name}.py" for name in ("mesh", "collectives", "sharding")),
             *(PORT / "preprocessing" / f"{name}.py"
               for name in ("common", "sroie", "ephoie", "funsd", "split"))} <= set(_port_files())
 

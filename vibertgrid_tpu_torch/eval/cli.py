@@ -10,7 +10,9 @@ ViBERTgrid-PyTorch checkpoint file), runs the test split through the
 dataset's entity join and filters, prints the method's P/R/F1 and writes the
 per-sample JSON report to ``<result_dir>/<checkpoint>.json``
 (``eval_SROIE.py:364-369``). Runs on the card unless the caller asks for the
-CPU.
+CPU. Under torchrun's environment each process scores its share
+``[rank::world]`` of the test split and the metrics are gathered from every
+process, as the training driver's validate does; rank 0 writes the report.
 """
 
 from __future__ import annotations
@@ -29,10 +31,20 @@ from vibertgrid_tpu_torch.data.dataset import (
     data_loader,
     prefetch_to_device,
 )
-from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.eval.harness import validate
+from vibertgrid_tpu_torch.parallel.mesh import (
+    get_rank,
+    get_world_size,
+    init_distributed_mode,
+    is_main_process,
+)
 from vibertgrid_tpu_torch.train.checkpoint import restore_model
-from vibertgrid_tpu_torch.train.driver import build_all, build_tokenizer, load_pretrained_into_state
+from vibertgrid_tpu_torch.train.driver import (
+    build_all,
+    build_tokenizer,
+    load_pretrained_into_state,
+    process_device,
+)
 from vibertgrid_tpu_torch.train.state import TrainState, make_eval_step
 
 
@@ -40,7 +52,9 @@ def evaluate(hyp: dict, dataset: str, spec=None, state: TrainState | None = None
              device="cuda") -> dict:
     """Evaluate ``state`` (else the checkpoint that ``hyp`` names) on the test
     split under ``hyp["data_root"]``; returns :func:`validate`'s metrics."""
-    dev = resolve_device(device)
+    init_distributed_mode(backend=hyp.get("dist_backend"))
+    dev = process_device(device)
+    shard = (get_rank(), get_world_size())
     tokenizer = build_tokenizer(hyp)
     spec, cfg, model, transform, collator, tag_to_idx = build_all(
         hyp, dataset, tokenizer, spec, device=dev)
@@ -69,9 +83,9 @@ def evaluate(hyp: dict, dataset: str, spec=None, state: TrainState | None = None
     # groups documents by collation signature
     ebs = hyp.get("eval_batch_size", 1)
     if ebs > 1:
-        loader = bucketed_eval_loader(test_ds, collator, batch_size=ebs)
+        loader = bucketed_eval_loader(test_ds, collator, batch_size=ebs, shard=shard)
     else:
-        loader = data_loader(test_ds, collator, batch_size=1, train=False)
+        loader = data_loader(test_ds, collator, batch_size=1, train=False, shard=shard)
     with contextlib.closing(prefetch_to_device(loader, dev)) as batches:
         results = validate(eval_step, state, batches, spec,
                            eval_mode=hyp.get("eval_mode", spec.default_eval_mode),
@@ -81,6 +95,8 @@ def evaluate(hyp: dict, dataset: str, spec=None, state: TrainState | None = None
     print(f"precision[{results.get('precision', 0):.4f}] "
           f"recall[{results.get('recall', 0):.4f}] "
           f"F1[{results.get('primary_F1', 0):.4f}]")
+    if not is_main_process():  # the same metrics; rank 0 writes them
+        return results
     result_dir = hyp.get("result_dir", "result")
     os.makedirs(result_dir, exist_ok=True)
     tag = os.path.basename(os.path.normpath(hyp.get("weights") or "eval")) or "eval"

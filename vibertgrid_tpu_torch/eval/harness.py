@@ -12,8 +12,13 @@ Eval modes (``example_config.yaml:55-58``):
 - ``seq_and_str``: both.
 
 The model's outputs arrive padded, ``[B, S, C]``; each sample's valid
-segments are sliced on the host. The gather of the metrics across processes
-belongs to the distributed layer; in one process there is nothing to gather.
+segments are sliced on the host. With more than one process each scores its
+loader shard, and after the last batch the losses, counters, tag sequences,
+pred/gt pairs and per-sample records are gathered from every process (the
+reference's ``all_reduce`` and ``all_gather_object``,
+``pipeline/train_val_utils.py:537-552``), so every process returns the same
+metrics; the processes may have different numbers of batches, so nothing is
+exchanged per batch.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from vibertgrid_tpu_torch.eval.entities import (
     sroie_result_filter,
 )
 from vibertgrid_tpu_torch.eval.seqeval_lite import bio_f1, classification_report, per_type_f1
+from vibertgrid_tpu_torch.parallel.mesh import get_world_size, process_allgather_objects
 
 RESULT_FILTERS: dict[str, Callable | None] = {
     "sroie": sroie_result_filter,
@@ -193,6 +199,22 @@ def validate(
                     "log": log,
                     "pred": pred_keys,
                 }
+
+    if get_world_size() > 1:
+        shards = process_allgather_objects(dict(
+            losses=(losses, losses_c, losses_aux),
+            counters=(recall_sum, precision_sum, num_gt, num_det),
+            pred_tag_seqs=pred_tag_seqs, gt_tag_seqs=gt_tag_seqs,
+            pred_gt_pairs=pred_gt_pairs, per_sample=per_sample,
+        ))
+        losses, losses_c, losses_aux = ([x for sh in shards for x in sh["losses"][i]]
+                                        for i in range(3))
+        recall_sum, precision_sum, num_gt, num_det = (
+            sum(sh["counters"][i] for sh in shards) for i in range(4))
+        pred_tag_seqs = [x for sh in shards for x in sh["pred_tag_seqs"]]
+        gt_tag_seqs = [x for sh in shards for x in sh["gt_tag_seqs"]]
+        pred_gt_pairs = [x for sh in shards for x in sh["pred_gt_pairs"]]
+        per_sample = {k: v for sh in shards for k, v in sh["per_sample"].items()}
 
     results: dict = {"loss": float(np.mean(losses)) if losses else None}
     # the loss's parts (total = loss_c + λ·loss_aux), for diagnosis only

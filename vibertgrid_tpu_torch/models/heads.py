@@ -24,6 +24,7 @@ from vibertgrid_tpu_torch.models.layers import conv, conv2d, dense, linear
 from vibertgrid_tpu_torch.models.norm import MaskedBatchNorm
 from vibertgrid_tpu_torch.ops import crf
 from vibertgrid_tpu_torch.ops.losses import bce_ohem, bce_random_sample, cross_entropy_ohem
+from vibertgrid_tpu_torch.parallel.collectives import all_max
 
 
 class MLPClassifier(nn.Module):
@@ -138,7 +139,8 @@ class FieldTypeClassification(nn.Module):
             loss2 = loss2 + bce_ohem(class_logits[:, ci], (segment_classes == ci + 1).float(),
                                      gated, seed=seeds[1 + ci], **self.ohem)
         # with nothing predicted positive the reference skips the class losses
-        return loss1 + gated.any().float() * loss2, class_pred
+        # (anywhere in the global batch, in a data-parallel step)
+        return loss1 + all_max(gated.any().float()) * loss2, class_pred
 
 
 class SimplifiedFieldTypeClassification(nn.Module):

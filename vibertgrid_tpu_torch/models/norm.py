@@ -8,6 +8,14 @@ ones: ``ra = momentum·ra + (1 − momentum)·batch`` with the **biased** batch
 variance, as the JAX package does (``torch.nn.BatchNorm2d`` would store the
 unbiased one). Whether a call trains is an argument, not the module's
 ``training`` flag, as in the JAX package.
+
+Inside a data-parallel train step
+(:func:`vibertgrid_tpu_torch.parallel.collectives.global_batch`) a training
+call takes its statistics over every rank's batch, as the JAX package's
+BatchNorm over a batch sharded in one program does (SyncBatchNorm): the
+sums and the counts are summed over the ranks, differentiably, so the
+gradients are those of the statistics of the global batch. Evaluation
+issues no collective.
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vibertgrid_tpu_torch.parallel.collectives import active, all_sum
 
 
 class LayerNorm(nn.Module):
@@ -76,6 +86,8 @@ class BatchNorm(_RunningNorm):
                 x.to(self.dtype), self.running_mean, self.running_var, self.weight, self.bias,
                 training=False, eps=self.eps,
             )
+        if active():
+            return self._global(x)
         # One fused pass forward and one backward: F.batch_norm normalises
         # with the biased batch variance in fp32 and, at momentum 1, leaves
         # the batch mean and the *unbiased* variance in the buffers it is
@@ -91,13 +103,29 @@ class BatchNorm(_RunningNorm):
         self._update(mean, var * ((n - 1) / n))
         return y
 
+    def _global(self, x):
+        """Training over the global batch: the mean from the ranks' sums and
+        counts, then the biased variance from their centred squares."""
+        xf = x.float()
+        c = x.shape[1]
+        count = xf.new_tensor([x.numel() // c])
+        sums = all_sum(torch.cat([xf.sum(dim=(0, 2, 3)), count]))
+        mean = sums[:c] / sums[c]
+        diff = xf - _view(mean)
+        var = all_sum((diff * diff).sum(dim=(0, 2, 3))) / sums[c]
+        self._update(mean.detach(), var.detach())
+        y = diff * _view(torch.rsqrt(var + self.eps))
+        return (y * _view(self.weight) + _view(self.bias)).to(self.dtype)
+
 
 class MaskedBatchNorm(_RunningNorm):
     """BatchNorm over RoIs ``[N, C, h, w]`` with an entry validity mask
     ``[N]``: in training the statistics are taken over the valid entries only
     (``denom = max(Σmask · h·w, 1)``), so padding RoIs do not contaminate
     them; in eval the running statistics are used and the mask plays no
-    part. Divides by ``sqrt(var + eps)``."""
+    part. Divides by ``sqrt(var + eps)``. In a data-parallel step the sums
+    and the counts are the ranks' together; a rank whose entries are all
+    padding adds zeros, and still joins the reduction."""
 
     def __init__(self, channels: int, *, eps: float = 1e-5, momentum: float = 0.9,
                  dtype=torch.float32, device=None):
@@ -107,10 +135,13 @@ class MaskedBatchNorm(_RunningNorm):
         xf = x.float()
         if train:
             m = mask.float().view(-1, 1, 1, 1)
-            denom = torch.clamp(m.sum() * (x.shape[2] * x.shape[3]), min=1.0)
-            mean = (xf * m).sum(dim=(0, 2, 3)) / denom
+            c = x.shape[1]
+            sums = all_sum(torch.cat([(xf * m).sum(dim=(0, 2, 3)),
+                                      (m.sum() * (x.shape[2] * x.shape[3])).reshape(1)]))
+            denom = torch.clamp(sums[c], min=1.0)
+            mean = sums[:c] / denom
             diff = (xf - _view(mean)) * m
-            var = (diff * diff).sum(dim=(0, 2, 3)) / denom
+            var = all_sum((diff * diff).sum(dim=(0, 2, 3))) / denom
             self._update(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var

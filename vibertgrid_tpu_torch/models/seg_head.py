@@ -26,6 +26,7 @@ from vibertgrid_tpu_torch.ops.losses import (
     cross_entropy_random_sample_pooled,
 )
 from vibertgrid_tpu_torch.ops.rasterize import rasterize_label_maps
+from vibertgrid_tpu_torch.parallel.collectives import all_max
 
 
 def _upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -99,7 +100,8 @@ class SemanticSegmentationHead(nn.Module):
         for ci in range(self.num_classes - 1):
             loss2 = loss2 + bce_ohem_pooled(bin_logits4[:, ci], class_map == ci + 1, gated,
                                             block=4, seed=seeds[1 + ci], **self.ohem)
-        loss = loss1 + pred_pos4.any().float() * loss2
+        # the class losses count where any pixel of the (global) batch is positive
+        loss = loss1 + all_max(pred_pos4.any().float()) * loss2
         return loss, _upsample_nearest(mask_logits4, 4), _upsample_nearest(class_logits4, 4)
 
 

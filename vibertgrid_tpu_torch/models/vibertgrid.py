@@ -41,6 +41,7 @@ from vibertgrid_tpu_torch.ops.grid_scatter import grid_scatter
 from vibertgrid_tpu_torch.ops.roi_align import roi_align
 from vibertgrid_tpu_torch.ops.segments import aggregate_token_embeddings
 from vibertgrid_tpu_torch.ops.windows import frame_windows, unframe_windows
+from vibertgrid_tpu_torch.parallel.collectives import all_max
 
 
 @dataclasses.dataclass
@@ -255,8 +256,9 @@ class ViBERTgridNet(nn.Module):
             raise ValueError(f"image bucket {h}x{w} must be a multiple of 32")
 
         # seq_len = the batch-max valid token count: where each window's
-        # [SEP] lands, as the reference frames its padded corpus.
-        seq_len = batch.token_mask.to(torch.int32).sum(dim=1).max()
+        # [SEP] lands, as the reference frames its padded corpus (the
+        # global batch's in a data-parallel step).
+        seq_len = all_max(batch.token_mask.to(torch.int32).sum(dim=1).max())
         ids, amask = frame_windows(
             batch.tokens, batch.token_mask, cls_id=cfg.cls_token_id,
             sep_id=cfg.sep_token_id, seq_len=seq_len,

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from vibertgrid_tpu_torch.parallel.collectives import active, all_sum
+
 NEG = -10000.0
 
 
@@ -63,11 +65,15 @@ def _gold_score(transitions, feats, tags, lengths):
 
 
 def crf_nll_batch(transitions, feats, tags, lengths) -> torch.Tensor:
-    """Mean over the batch of ``(logZ − gold) / max(length, 1)``.
-    ``feats [B, T, K]``, ``tags [B, T]`` int, ``lengths [B]`` int."""
+    """Mean over the batch of ``(logZ − gold) / max(length, 1)`` (the
+    global batch's in a data-parallel step). ``feats [B, T, K]``,
+    ``tags [B, T]`` int, ``lengths [B]`` int."""
     logz = _forward_logz(transitions, feats, lengths)
     gold = _gold_score(transitions, feats, tags, lengths)
-    return ((logz - gold) / lengths.float().clamp(min=1.0)).mean()
+    nll = (logz - gold) / lengths.float().clamp(min=1.0)
+    if active():
+        return all_sum(nll.sum()) / all_sum(nll.new_tensor(float(nll.numel())))
+    return nll.mean()
 
 
 def crf_decode_batch(transitions, feats, lengths):

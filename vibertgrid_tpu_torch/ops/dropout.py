@@ -14,6 +14,11 @@ comparisons flip the sign bit of both sides.
 Every random site takes an explicit int seed (see
 :class:`vibertgrid_tpu_torch.train.seeds.SeedStream`); the JAX package's
 ``derive_seed`` draws from a threefry key and has no counterpart here.
+
+In a data-parallel train step :func:`hash_dropout` counts from this rank's
+offset in the global flat index, as the JAX package's one program hashes
+the index of the global array; the in-kernel dropouts fold the rank into
+their seed instead (``parallel/collectives.py::fold_seed``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from vibertgrid_tpu_torch.parallel.collectives import index_base
 
 _M32 = 0xFFFFFFFF
 _INT_MIN = -(2**31)
@@ -69,36 +76,44 @@ def keep_from_bits(bits_i32: torch.Tensor, rate: float) -> torch.Tensor:
     return (bits_i32 ^ _INT_MIN) >= _i32(dropout_threshold(rate) ^ 0x80000000)
 
 
-def keep_mask(shape, seed, rate: float, device) -> torch.Tensor:
-    """Bool keep mask of ``shape``, hashed over the row-major flat index."""
+def keep_mask(shape, seed, rate: float, device, base=0) -> torch.Tensor:
+    """Bool keep mask of ``shape``, hashed over the row-major flat index
+    counted from ``base`` (an int or a 0-d int64 tensor)."""
     n = math.prod(shape)
-    counters = torch.arange(n, dtype=torch.int32, device=device)
+    if isinstance(base, int) and base == 0:
+        counters = torch.arange(n, dtype=torch.int32, device=device)
+    else:
+        counters = (torch.arange(n, dtype=torch.int64, device=device) + base).to(torch.int32)
     return keep_from_bits(splitmix32_i32(counters, seed), rate).reshape(tuple(shape))
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _apply(x: torch.Tensor, seed: int, rate: float, base) -> torch.Tensor:
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
-    keep = keep_mask(x.shape, seed, rate, x.device)
+    keep = keep_mask(x.shape, seed, rate, x.device, base)
     return x * torch.where(keep, scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class _HashDropout(torch.autograd.Function):
-    """Saves only the seed; the backward pass regenerates the mask."""
+    """Saves only the seed and the index base; the backward pass regenerates
+    the mask."""
 
     @staticmethod
     def forward(ctx, x, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
-        return _apply(x, seed, rate)
+        base = index_base(x.numel(), x.device)
+        ctx.seed, ctx.rate, ctx.base = seed, rate, base
+        return _apply(x, seed, rate, base)
 
     @staticmethod
     def backward(ctx, grad):
-        return _apply(grad, ctx.seed, ctx.rate), None, None
+        return _apply(grad, ctx.seed, ctx.rate, ctx.base), None, None
 
 
 def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """Dropout with a counter-based mask: ``x · keep / (1 − rate)``.
 
     ``seed``: int32 value, distinct for each call site; ``rate`` in [0, 1).
+    In a data-parallel step the mask is this rank's rows of the mask of the
+    ranks' arrays concatenated.
     """
     if rate <= 0.0:
         return x

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from vibertgrid_tpu_torch.ops import kernels
+from vibertgrid_tpu_torch.parallel.collectives import fold_seed
 from vibertgrid_tpu_torch.ops.dropout import _i32, keep_from_bits, splitmix32_i32
 
 
@@ -256,7 +257,11 @@ def flash_attention(q, k, v, bias, sm_scale: float, num_heads: int, rate: float 
     ``bias``: ``[B, T]`` fp32, 0 for real keys and −1e9 for masked ones;
     ``rate``, ``seed``: dropout of the probabilities (none at ``rate=0``).
     CUDA tensors go through the kernels (T ≤ 512, D ≤ 128, fp32 or bf16,
-    contiguous); CPU tensors through the plain twins.
+    contiguous); CPU tensors through the plain twins. In a data-parallel
+    train step the rank is folded into the seed (``seed + rank·2¹⁶``, the
+    JAX package's ``flash_attention_sharded`` with one model shard).
     """
+    if rate > 0.0:
+        seed = fold_seed(seed)
     return _FlashAttention.apply(q, k, v, bias, float(sm_scale), int(num_heads),
                                  int(seed), float(rate))

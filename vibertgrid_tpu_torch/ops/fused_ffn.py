@@ -25,7 +25,10 @@ call); on CPU tensors they run
 :func:`ffn_up_reference` and :func:`ffn_down_ln_reference`) and
 :func:`proj_ln_reference`, the plain versions the kernels are held against.
 Dropout keeps element ``(row, col)`` where ``splitmix32(row·D + col, seed)``
-reaches ``uint32(rate·2³²)`` and divides kept values by ``1 − rate``.
+reaches ``uint32(rate·2³²)`` and divides kept values by ``1 − rate``. In a
+data-parallel train step the public wrappers fold the rank into the seed
+(``seed + rank·2¹⁶``), as the JAX package's ``*_sharded`` wrappers fold the
+data shard in.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from vibertgrid_tpu_torch.ops import kernels
 from vibertgrid_tpu_torch.ops.dropout import keep_mask
+from vibertgrid_tpu_torch.parallel.collectives import fold_seed
 
 _ERF_CLIP = 3.832506856900711
 _ERF_P = (
@@ -309,6 +313,8 @@ def fused_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float, rate: float = 0.
     256, 512, 768}, F a multiple of 128, biases and LN params fp32 ``[F]`` /
     ``[D]``); CPU tensors through :func:`ffn_reference`.
     """
+    if rate > 0.0:
+        seed = fold_seed(seed)
     return _FusedFFNRemat.apply(x, w1, b1, w2, b2, ln_scale, ln_bias, float(eps), int(seed),
                                 float(rate))
 
@@ -318,6 +324,8 @@ def fused_ffn_saved(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float, rate: floa
     """:func:`fused_ffn` through the saved-residual kernel: the same forward
     arithmetic, and a backward that needs no rematerialisation.
     """
+    if rate > 0.0:
+        seed = fold_seed(seed)
     return _FusedFFNSaved.apply(x, w1, b1, w2, b2, ln_scale, ln_bias, float(eps),
                                 int(seed), float(rate))
 
@@ -412,5 +420,7 @@ def fused_proj_ln(ctx, res, w, b, ln_scale, ln_bias, eps: float, rate: float = 0
     CUDA tensors go through the kernel (D in {64, 128, 256, 512, 768}, any N,
     ``b`` and LN params fp32 ``[D]``) or raise; CPU tensors through
     :func:`proj_ln_reference`."""
+    if rate > 0.0:
+        seed = fold_seed(seed)
     return _FusedProjLN.apply(ctx, res, w, b, ln_scale, ln_bias, float(eps), int(seed),
                               float(rate))

@@ -32,6 +32,17 @@ Two rules of the JAX package are kept because they decide gradients:
 The JAX package finds each threshold by a 32-step search over the key bits
 (sorting is slow on its hardware); here the thresholds come from
 ``torch.topk`` and a sort, which select the same sets.
+
+Inside a data-parallel train step
+(:func:`vibertgrid_tpu_torch.parallel.collectives.global_batch`) every
+selection and every count is over the global batch, as in the JAX package's
+one program over it: the global k largest lie among the union of each
+rank's k largest, so each rank gathers its k candidate keys, all find the
+global threshold, each sums its own share (ties included), and the sums and
+counts are summed over the ranks. The random keys hash the global flat
+index (this rank's base plus the local index), so the selected sets are a
+single process's on the concatenated batch when the ranks' shapes agree,
+and the ranks' streams are disjoint when they do not.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from vibertgrid_tpu_torch.ops.dropout import splitmix32
+from vibertgrid_tpu_torch.parallel.collectives import active, all_sum, gather, index_base
 
 
 def _weight_tensor(weight, device):
@@ -87,28 +99,54 @@ def _tie_take(sum_above, cnt_above, sum_ties, cnt_ties, kept):
     return sum_above + frac * sum_ties
 
 
+def _global_topk(keys, k: int, pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of this rank's ``min(k, n)`` largest ``keys``,
+    the values padded with ``pad`` to ``k``, gathered from every rank:
+    ``[world·k]`` candidates that hold the global k largest."""
+    kk = min(k, keys.numel())
+    top = torch.topk(keys, kk)
+    values = torch.cat([top.values, top.values.new_full((k - kk,), pad)])
+    return gather(values).reshape(-1), top.indices
+
+
+def _sum_pairs(values, counts):
+    """The ranks' sums of a list of value sums and of a list of counts."""
+    return all_sum(torch.stack(values)).unbind(), all_sum(torch.stack(counts)).unbind()
+
+
 def _masked_topk_sum(losses, mask, k: int):
     """Sum of the ``min(k, n_masked)`` largest masked losses, and the kept
     count. ``k = -1`` keeps everything masked. Threshold ties are taken
     through their values (see the module docstring)."""
-    n = mask.sum()
+    n = all_sum(mask.sum())
     if k == -1:
-        return torch.where(mask, losses, 0.0).sum(), n
+        return all_sum(torch.where(mask, losses, 0.0).sum()), n
     if k == 0:
         return losses.new_zeros(()), torch.zeros_like(n)
     keys = torch.where(mask, _sortable_key(losses), 0).reshape(-1)
     # key of the k-th largest value; 0 ("keep everything") when fewer than k
     # elements exist at all
-    t = torch.topk(keys, k).values[-1] if k <= keys.numel() else keys.new_zeros(())
+    if active():
+        t = torch.topk(_global_topk(keys, k, 0)[0], k).values[-1]
+    else:
+        t = torch.topk(keys, k).values[-1] if k <= keys.numel() else keys.new_zeros(())
     keys = keys.reshape(mask.shape)
     above = keys > t
     ties = (keys == t) & mask & (t > 0)
     kept = n.clamp(max=k)
-    total = _tie_take(
-        torch.where(above, losses, 0.0).sum(), above.sum(),
-        torch.where(ties, losses, 0.0).sum(), ties.sum(), kept,
-    )
-    return total, kept
+    (sum_above, sum_ties), (cnt_above, cnt_ties) = _sum_pairs(
+        [torch.where(above, losses, 0.0).sum(), torch.where(ties, losses, 0.0).sum()],
+        [above.sum(), ties.sum()])
+    return _tie_take(sum_above, cnt_above, sum_ties, cnt_ties, kept), kept
+
+
+def _weighted_threshold(keys, w, k: int):
+    """The largest key t whose weighted count of keys >= t reaches k (0 if
+    none does)."""
+    order = torch.argsort(keys, descending=True)
+    reached = torch.cumsum(w[order], 0) >= k
+    first = torch.argmax(reached.to(torch.int8))
+    return torch.where(reached.any(), keys[order][first], 0)
 
 
 def _weighted_topk_sum(values, weights, k: int):
@@ -119,31 +157,36 @@ def _weighted_topk_sum(values, weights, k: int):
     w = weights.reshape(-1).to(torch.int64)
     v = values.float().reshape(-1)
     wf = w.float()
-    n = w.sum()
+    n = all_sum(w.sum())
     if k == -1:
-        return (wf * v).sum(), n
+        return all_sum((wf * v).sum()), n
     if k == 0:
         return v.new_zeros(()), torch.zeros_like(n)
     keys = torch.where(w > 0, _sortable_key(v), 0)
-    # largest key t whose weighted count of keys >= t reaches k (0 if none)
-    order = torch.argsort(keys, descending=True)
-    reached = torch.cumsum(w[order], 0) >= k
-    first = torch.argmax(reached.to(torch.int8))
-    t = torch.where(reached.any(), keys[order][first], 0)
+    if active():
+        # every key at or above the global threshold that a rank leaves out
+        # lies below k of its own candidates, so the candidates decide it
+        cand_keys, idx = _global_topk(keys, k, 0)
+        cw = w[idx]
+        cand_w = gather(torch.cat([cw, cw.new_zeros(k - cw.numel())])).reshape(-1)
+        t = _weighted_threshold(cand_keys, cand_w, k)
+    else:
+        t = _weighted_threshold(keys, w, k)
     above = keys > t
     ties = (keys == t) & (w > 0) & (t > 0)
     kept = n.clamp(max=k)
-    total = _tie_take(
-        torch.where(above, wf * v, 0.0).sum(), torch.where(above, w, 0).sum(),
-        torch.where(ties, wf * v, 0.0).sum(), torch.where(ties, w, 0).sum(), kept,
-    )
-    return total, kept
+    (sum_above, sum_ties), (cnt_above, cnt_ties) = _sum_pairs(
+        [torch.where(above, wf * v, 0.0).sum(), torch.where(ties, wf * v, 0.0).sum()],
+        [torch.where(above, w, 0).sum(), torch.where(ties, w, 0).sum()])
+    return _tie_take(sum_above, cnt_above, sum_ties, cnt_ties, kept), kept
 
 
 def _hash_bits(n: int, seed: int, device) -> torch.Tensor:
-    """``[n]`` int64 random keys in ``[0, 2³²)``: splitmix32 of (seed, index).
-    The finalizer is a bijection, so the n keys are pairwise distinct."""
-    return splitmix32(torch.arange(n, dtype=torch.int32, device=device), seed)
+    """``[n]`` int64 random keys in ``[0, 2³²)``: splitmix32 of (seed, global
+    flat index). The finalizer is a bijection, so the keys are pairwise
+    distinct."""
+    index = torch.arange(n, dtype=torch.int64, device=device) + index_base(n, device)
+    return splitmix32(index.to(torch.int32), seed)
 
 
 def _random_subsample_masks(cat_masks, limits, seed: int):
@@ -155,14 +198,19 @@ def _random_subsample_masks(cat_masks, limits, seed: int):
     outs = []
     for mask, limit in zip(cat_masks, limits):
         flat = mask.reshape(-1)
-        limit = min(limit, n)
+        if not active():
+            limit = min(limit, n)
         if limit <= 0:
             keep = torch.zeros_like(flat)
         else:
             keyed = torch.where(flat, bits, -1)
             # the limit-th largest key of the category; -1 (keep the whole
             # category) when it has fewer entries than the limit
-            keep = flat & (keyed >= torch.topk(keyed, limit).values[-1])
+            if active():
+                t = torch.topk(_global_topk(keyed, limit, -1)[0], limit).values[-1]
+            else:
+                t = torch.topk(keyed, limit).values[-1]
+            keep = flat & (keyed >= t)
         outs.append(keep.reshape(mask.shape))
     return outs
 
@@ -241,11 +289,11 @@ def cross_entropy_ohem_pooled(logits4, targets, *, block: int, num_hard_positive
 
     if num_hard_positive == -1 and num_hard_negative == -1:
         counts = _counts(cmasks, block).float()
-        total = (counts * vals).sum()
+        total = all_sum((counts * vals).sum())
         if weight is not None:
             w_ext = torch.cat([_weight_tensor(weight, vals.device), vals.new_zeros(1)])
-            return total / (counts * w_ext).sum().clamp(min=1e-12)
-        return total / counts.sum().clamp(min=1.0)
+            return total / all_sum((counts * w_ext).sum()).clamp(min=1e-12)
+        return total / all_sum(counts.sum()).clamp(min=1.0)
 
     pos_mask, neg_mask = targets != 0, targets == 0
     if random:
@@ -271,7 +319,7 @@ def cross_entropy_random_sample_pooled(logits4, targets, *, block: int, sample_l
 
     if sample_list is None:
         counts = _counts(cmasks, block).float()
-        return (counts * vals).sum() / counts.sum().clamp(min=1.0)
+        return all_sum((counts * vals).sum()) / all_sum(counts.sum()).clamp(min=1.0)
 
     assert seed is not None, "random sampling needs a seed"
     num_cats = len(sample_list)
@@ -294,7 +342,7 @@ def cross_entropy_random_sample_pooled(logits4, targets, *, block: int, sample_l
             kc = _block_sum((kept & cmasks[ci]).to(torch.int32), block).float()
             total = total + (kc * vals[..., ci]).sum()
             count = count + kc.sum()
-    return total / count.clamp(min=1.0)
+    return all_sum(total) / all_sum(count).clamp(min=1.0)
 
 
 def bce_ohem_pooled(logits4, targets, gate, *, block: int, num_hard_positive: int = -1,
@@ -321,7 +369,8 @@ def bce_ohem_pooled(logits4, targets, gate, *, block: int, num_hard_positive: in
 
 
 def _masked_mean(losses, valid):
-    return torch.where(valid, losses, 0.0).sum() / valid.sum().float().clamp(min=1.0)
+    return (all_sum(torch.where(valid, losses, 0.0).sum())
+            / all_sum(valid.sum()).float().clamp(min=1.0))
 
 
 def _ohem(losses, targets, valid, num_hard_positive, num_hard_negative, random, seed):
@@ -346,8 +395,8 @@ def cross_entropy_ohem(logits, targets, valid, *, num_hard_positive: int = -1,
     if num_hard_positive == -1 and num_hard_negative == -1:
         if weight is not None:
             # the mean of a weighted CE divides by the summed weights
-            wsum = torch.where(valid, _per_example_weight(targets, weight), 0.0).sum()
-            return torch.where(valid, losses, 0.0).sum() / wsum.clamp(min=1e-12)
+            wsum = all_sum(torch.where(valid, _per_example_weight(targets, weight), 0.0).sum())
+            return all_sum(torch.where(valid, losses, 0.0).sum()) / wsum.clamp(min=1e-12)
         return _masked_mean(losses, valid)
     return _ohem(losses, targets, valid, num_hard_positive, num_hard_negative, random, seed)
 
@@ -356,7 +405,7 @@ def _sampled_mean(losses, cat_masks, samples, seed):
     kept_list = _random_subsample_masks(cat_masks, samples, seed)
     total = sum(torch.where(kept, losses, 0.0).sum() for kept in kept_list)
     count = sum(kept.sum() for kept in kept_list)
-    return total / count.float().clamp(min=1.0)
+    return all_sum(total) / all_sum(count).float().clamp(min=1.0)
 
 
 def cross_entropy_random_sample(logits, targets, valid, *, sample_list=None, weight=None,

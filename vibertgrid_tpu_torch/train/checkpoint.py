@@ -12,6 +12,12 @@ adds) lives in the JSON file beside it.
 Restoring copies into an existing :class:`TrainState` in place, as the
 train step updates it in place; the state's model and optimizer fix the
 shapes, dtypes and device.
+
+With more than one process every rank calls the save: a ZeRO-1 optimizer
+gathers its state slices first, so that a checkpoint holds the whole state
+and resumes under any number of processes; then rank 0 alone writes and the
+others wait for it at a barrier (the ranks share one file system, where the
+JAX package's per-host save writes from every host).
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from vibertgrid_tpu_torch.parallel.mesh import get_world_size, is_main_process
 from vibertgrid_tpu_torch.train.state import TrainState
 
 _STATE_FILE = "state.pt"
@@ -31,12 +39,12 @@ _META_FILE = "meta.json"
 def _payload(state: TrainState) -> dict:
     named = dict(state.model.named_parameters())
     optimizer = state.optimizer
+    slots = optimizer.gathered_state()  # whole tensors, also under ZeRO-1
     return {
         "model": state.model.state_dict(),
         "optimizer": {
             "count": optimizer.count,
-            "slots": {name: dict(optimizer.state[p]) for name, p in named.items()
-                      if p in optimizer.state},
+            "slots": {name: slots[p] for name, p in named.items() if p in slots},
             "schedules": {k: torch.from_numpy(np.asarray(v, dtype=np.float64))
                           for k, v in optimizer.schedules.items()},
         },
@@ -54,12 +62,16 @@ class CheckpointManager:
         return os.path.join(self.directory, tag)
 
     def _write(self, path: str, state: TrainState, meta: dict) -> str:
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, _STATE_FILE + ".tmp")
-        torch.save(_payload(state), tmp)
-        os.replace(tmp, os.path.join(path, _STATE_FILE))  # never a half-written state.pt
-        with open(os.path.join(path, _META_FILE), "w") as f:
-            json.dump(meta, f)
+        payload = _payload(state)  # on every rank: it may gather ZeRO-1 slices
+        if is_main_process():
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, _STATE_FILE + ".tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, os.path.join(path, _STATE_FILE))  # never a half-written state.pt
+            with open(os.path.join(path, _META_FILE), "w") as f:
+                json.dump(meta, f)
+        if get_world_size() > 1:
+            dist.barrier()
         return path
 
     def maybe_save(self, state: TrainState, epoch: int, f1: float,

@@ -15,8 +15,18 @@ besides, ``tokenizer_path`` (a local tokenizer; nothing is downloaded),
 The flow is ``train_SROIE.py:51-423``'s: seed, tokenizer, datasets, model,
 dual optimizer and schedules, local pretrained weights, resume, an initial
 validate, then the epoch loop (train an epoch, validate, keep checkpoints by
-F1). It trains in one process on one device, the card unless the caller
-asks for the CPU; the data- and tensor-parallel keys raise.
+F1). It trains on the card unless the caller asks for the CPU.
+
+Under torchrun (``WORLD_SIZE`` and the rendezvous in the environment) it
+trains data-parallel, one process per card (``LOCAL_RANK`` modulo the
+cards; ``dist_backend`` names the ``torch.distributed`` backend, NCCL on
+the card by default): each process loads its share ``[rank::world]`` of
+every epoch and of the test split, ``batch_size`` documents a step (the
+global batch is ``batch_size · world``), the train step computes the
+global batch's loss and gradients (``parallel/``), ``zero1: true`` splits
+the optimizer state over the processes, and validate gathers the metrics
+from every process. ``mesh_model > 1`` (tensor parallelism) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,6 +55,17 @@ from vibertgrid_tpu_torch.data.transform import ImageTransform
 from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.eval.harness import validate
 from vibertgrid_tpu_torch.models.vibertgrid import ModelConfig, ViBERTgridNet
+from vibertgrid_tpu_torch.parallel.mesh import (
+    get_rank,
+    get_world_size,
+    init_distributed_mode,
+    is_main_process,
+    local_device_index,
+    make_mesh,
+    replicate,
+    setup_rank0_print,
+)
+from vibertgrid_tpu_torch.parallel.sharding import shard_optimizer_state
 from vibertgrid_tpu_torch.train.checkpoint import CheckpointManager
 from vibertgrid_tpu_torch.train.optim import make_optimizer
 from vibertgrid_tpu_torch.train.seeds import step_seeds
@@ -157,30 +178,22 @@ def load_pretrained_into_state(state, hyp: dict):
     return state
 
 
-def _check_single_process(hyp: dict) -> None:
-    """Raise where the config or the environment asks for more than one
-    process or device: the port's distributed layer (data and tensor
-    parallelism, ZeRO-1) is not written yet, and training on one device in
-    its place would be another run than the one asked for."""
-    asked = [name for name, on in (
-        ("zero1: true", bool(hyp.get("zero1", False))),
-        (f"mesh_data: {hyp.get('mesh_data')}", (hyp.get("mesh_data") or 1) > 1),
-        (f"mesh_model: {hyp.get('mesh_model')}", (hyp.get("mesh_model") or 1) > 1),
-        (f"WORLD_SIZE={os.environ.get('WORLD_SIZE')}",
-         int(os.environ.get("WORLD_SIZE", "1")) > 1),
-    ) if on]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: the distributed layer (data and tensor parallelism, "
-            "ZeRO-1; vibertgrid_tpu/parallel) is not ported yet; this driver trains in one "
-            "process on one device")
+def process_device(device) -> torch.device:
+    """Join the process group the environment describes, if any, and return
+    this process's device: with a group, the card ``LOCAL_RANK`` modulo the
+    cards (made current) where ``device`` names the card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and get_world_size() > 1:
+        dev = torch.device("cuda", local_device_index())
+        torch.cuda.set_device(dev)
+    return dev
 
 
 @contextlib.contextmanager
 def _tee_stdout(hyp: dict, comment: str):
     """With ``tee_logs`` (the default) stdout also goes to a log file under
-    ``save_log`` for the run's length."""
-    if not hyp.get("tee_logs", True):
+    ``save_log`` for the run's length (rank 0's only)."""
+    if not hyp.get("tee_logs", True) or not is_main_process():
         yield
         return
     save_log = hyp.get("save_log", "./log/")
@@ -205,9 +218,15 @@ def train(hyp: dict, dataset: str, spec=None, max_steps: int | None = None, *,
     (each epoch's steps, losses, wall seconds and seconds waited on the
     loader; each validate's documents and wall seconds). ``max_steps`` cuts
     the run short (smoke runs); the run then validates and may save once more.
-    ``device`` is the card unless the caller asks for the CPU (the tests)."""
-    _check_single_process(hyp)
-    dev = resolve_device(device)
+    ``device`` is the card unless the caller asks for the CPU (the tests).
+    Under torchrun's environment it trains data-parallel (module docstring);
+    a bootstrap that fails raises."""
+    # the torchrun / NCCL bootstrap and the rank-0 print (the reference's
+    # distributed_utils.py:73-100, 57-70); no-ops in one process
+    init_distributed_mode(backend=hyp.get("dist_backend"))
+    setup_rank0_print()
+    make_mesh(hyp.get("mesh_data"), hyp.get("mesh_model") or 1)
+    dev = process_device(device)
     comment = hyp.get("comment", dataset)
     with _tee_stdout(hyp, comment):
         return _train(hyp, dataset, spec, max_steps, dev, comment)
@@ -237,19 +256,27 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         transform.image_mean = m.tolist()
         transform.image_std = s.tolist()
 
-    niter_per_ep = max(len(train_ds) // batch_size, 1)
+    # each process takes its share of an epoch, batch_size documents a step:
+    # the schedules count its steps (DistributedSampler's length)
+    rank, world = get_rank(), get_world_size()
+    niter_per_ep = max(len(train_ds) // world // batch_size, 1)
     optimizer, schedules = make_optimizer(hyp, end_epoch, niter_per_ep, model.named_parameters(),
                                           return_schedules=True)
     state = create_train_state(model, optimizer)
     # pretrained weights from local files only (no hub)
     if hyp.get("bert_weights") or hyp.get("backbone_weights") or hyp.get("reference_weights"):
         load_pretrained_into_state(state, hyp)
+    replicate(state.model)  # every process starts from rank 0's weights
 
     ckpt = CheckpointManager(hyp.get("save_top", "./weights/"), hyp.get("top_F1_tresh", 0.0))
     if hyp.get("weights"):
         state, meta = ckpt.restore(hyp["weights"], state)
         start_epoch = int(meta.get("epoch", 0)) + 1
         print(f"==> resumed from {hyp['weights']} at epoch {start_epoch}")
+    if hyp.get("zero1", False):
+        # ZeRO-1: each process keeps and updates its slices of the large
+        # optimizer-state leaves (a no-op in one process)
+        shard_optimizer_state(state.optimizer, rank, world)
 
     train_step = make_train_step()
     # eval_uint8_upload: validation on the serving engine's uint8 wire (4x
@@ -260,7 +287,7 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         eval_step = make_eval_step(image_stats=(transform.image_mean, transform.image_std))
     else:
         eval_collator, eval_step = collator, make_eval_step()
-    logger = MetricsLogger(hyp.get("save_log", "./log/"), comment)
+    logger = MetricsLogger(hyp.get("save_log", "./log/"), comment, enabled=is_main_process())
     timings: dict = {"train": [], "validate": []}
 
     def run_validate(epoch):
@@ -268,7 +295,7 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         t0 = time.perf_counter()
         loader = bucketed_eval_loader(test_ds, eval_collator,
                                       batch_size=hyp.get("eval_batch_size", 8),
-                                      num_workers=num_workers)
+                                      shard=(rank, world), num_workers=num_workers)
         with contextlib.closing(prefetch_to_device(loader, dev)) as batches:
             res = validate(eval_step, state, batches, spec, eval_mode=eval_mode,
                            tag_to_idx=tag_to_idx,
@@ -318,7 +345,7 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         waited = 0.0
         epoch_losses = []
         loader = data_loader(train_ds, collator, batch_size, train=True, seed=epoch,
-                             num_workers=num_workers)
+                             shard=(rank, world), num_workers=num_workers)
         # a background thread reads and collates the next batches and copies
         # them to the device while the device runs this step
         with contextlib.closing(prefetch_to_device(loader, dev)) as batches:
@@ -341,7 +368,9 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         step_losses = torch.stack(epoch_losses).cpu().tolist() if epoch_losses else []
         wall = time.perf_counter() - t_ep
         mean_loss = float(np.mean(step_losses)) if step_losses else float("nan")
-        timings["train"].append(dict(epoch=epoch, steps=it_in_epoch, docs=it_in_epoch * batch_size,
+        # docs: the global batch's, every process's together
+        timings["train"].append(dict(epoch=epoch, steps=it_in_epoch,
+                                     docs=it_in_epoch * batch_size * world,
                                      losses=step_losses, wall_s=wall, loader_wait_s=waited))
         print(f"\tepoch[{epoch + 1}] train_loss: {mean_loss:.4f} time: {wall:.0f}s "
               f"({it_in_epoch} steps, {waited:.1f}s waiting on the loader)")

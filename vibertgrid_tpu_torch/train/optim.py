@@ -11,12 +11,17 @@ The momentum buffer and the Adam moments are *stored* in
 ``optimizer_state_dtype`` (bf16 by default); the arithmetic is fp32 and the
 state is cast once on write. The updates run as ``torch._foreach_*`` passes
 over each group's tensor lists.
+
+Under ZeRO-1 (:func:`vibertgrid_tpu_torch.parallel.sharding.shard_optimizer_state`)
+each rank keeps the state of its slices of the large parameters only,
+updates those slices, and the ranks then exchange the updated slices.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vibertgrid_tpu_torch.train.schedules import (
     cosine_scheduler,
@@ -63,6 +68,7 @@ class DualOptimizer(torch.optim.Optimizer):
         self.momentum, self.beta1, self.beta2, self.eps = momentum, beta1, beta2, eps
         self.state_dtype = state_dtype
         self.count = 0  # updates applied so far: the schedules' index
+        self.shards: dict = {}  # ZeRO-1: {param: (axis, start, length)} this rank owns
         for group in self.param_groups:
             for p in group["params"]:
                 zeros = lambda: torch.zeros_like(p, dtype=state_dtype or p.dtype)
@@ -71,18 +77,18 @@ class DualOptimizer(torch.optim.Optimizer):
                 else:
                     self.state[p] = {"mu": zeros(), "nu": zeros()}
 
-    def _sgd(self, params, grads, lr: float, wd: float):
-        bufs = [self.state[p]["momentum"] for p in params]
+    def _sgd(self, owners, params, grads, lr: float, wd: float):
+        bufs = [self.state[p]["momentum"] for p in owners]
         g = torch._foreach_add(grads, params, alpha=wd)      # grad + wd·p
         buf = torch._foreach_mul(_f32(bufs), self.momentum)  # momentum·b + g
         torch._foreach_add_(buf, g)
         torch._foreach_add_(params, buf, alpha=-lr)
         _store(bufs, buf)
 
-    def _adamw(self, params, grads, lr: float, wd: float):
+    def _adamw(self, owners, params, grads, lr: float, wd: float):
         b1, b2 = self.beta1, self.beta2
-        mus = [self.state[p]["mu"] for p in params]
-        nus = [self.state[p]["nu"] for p in params]
+        mus = [self.state[p]["mu"] for p in owners]
+        nus = [self.state[p]["nu"] for p in owners]
         mu = torch._foreach_mul(_f32(mus), b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
         nu = torch._foreach_mul(_f32(nus), b2)
@@ -102,22 +108,69 @@ class DualOptimizer(torch.optim.Optimizer):
         _store(mus, mu)
         _store(nus, nu)
 
+    def _owned(self, t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``t`` (a parameter or its gradient): all of it
+        unless ZeRO-1 split ``p``'s state."""
+        if p not in self.shards:
+            return t
+        ax, start, length = self.shards[p]
+        return t.narrow(ax, start, length)
+
+    def set_shards(self, shards: dict) -> None:
+        """ZeRO-1: keep only the slices ``{param: (axis, start, length)}`` of
+        the named parameters' state, and update only those slices."""
+        for p, (ax, start, length) in shards.items():
+            self.state[p] = {k: v.narrow(ax, start, length).clone()
+                             for k, v in self.state[p].items()}
+        self.shards = dict(shards)
+
+    def _assemble(self, pieces: dict) -> dict:
+        """``{param: whole tensor}`` from each rank's slice ``pieces[param]``
+        (every rank calls it): one all-reduce of a buffer in which each rank
+        writes its slices, in fp32 (exact for bf16 state), zeros elsewhere."""
+        params = list(pieces)
+        numels = [p.numel() for p in params]
+        flat = torch.zeros(sum(numels), dtype=torch.float32, device=params[0].device)
+        regions = [r.view(p.shape) for r, p in zip(flat.split(numels), params)]
+        for r, p in zip(regions, params):
+            self._owned(r, p).copy_(pieces[p])
+        dist.all_reduce(flat)
+        return dict(zip(params, regions))
+
+    def gathered_state(self) -> dict:
+        """``{param: {slot: whole tensor}}``: the state as one process holds
+        it, the ZeRO-1 slices gathered from every rank (a collective when the
+        state is split)."""
+        out = {p: dict(st) for p, st in self.state.items()}
+        if self.shards:
+            slots = {slot for p in self.shards for slot in self.state[p]}
+            for slot in sorted(slots):
+                whole = self._assemble({p: self.state[p][slot] for p in self.shards
+                                        if slot in self.state[p]})
+                for p, t in whole.items():
+                    out[p][slot] = t.to(self.state[p][slot].dtype)
+        return out
+
     @torch.no_grad()
     def step(self, grad_scale: torch.Tensor | None = None):
         for group in self.param_groups:
             kind = group["kind"]
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
+            owners = [p for p in group["params"] if p.grad is not None]
+            if not owners:
                 continue
-            grads = _f32([p.grad for p in params])
+            params = [self._owned(p, p) for p in owners]
+            grads = _f32([self._owned(p.grad, p) for p in owners])
             if grad_scale is not None:
                 grads = torch._foreach_mul(grads, grad_scale)
             lr = schedule_value(self.schedules[f"lr_{kind}"], self.count)
             wd = schedule_value(self.schedules[f"wd_{kind}"], self.count)
-            (self._sgd if kind == "cnn" else self._adamw)(params, grads, lr, wd)
+            (self._sgd if kind == "cnn" else self._adamw)(owners, params, grads, lr, wd)
+        if self.shards:  # every rank takes the others' updated slices
+            for p, whole in self._assemble({p: self._owned(p, p) for p in self.shards}).items():
+                p.copy_(whole)
         self.count += 1
 
-    _OWN = ("schedules", "momentum", "beta1", "beta2", "eps", "state_dtype", "count")
+    _OWN = ("schedules", "momentum", "beta1", "beta2", "eps", "state_dtype", "count", "shards")
 
     def __getstate__(self):  # the base class keeps only its own fields
         state = super().__getstate__()
@@ -127,9 +180,11 @@ class DualOptimizer(torch.optim.Optimizer):
     def load_named_state(self, named_parameters, named_state: dict, count: int = 0):
         """Set the momentum / moment slots by parameter name (as
         :func:`vibertgrid_tpu_torch.convert.optimizer_state_from_optax`
-        returns them) and the schedules' index."""
+        returns them, whole tensors; under ZeRO-1 this rank's slices are
+        taken) and the schedules' index."""
         for name, p in named_parameters:
             for slot, value in named_state.get(name, {}).items():
+                value = self._owned(value, p)
                 self.state[p][slot].copy_(value.to(self.state[p][slot].device))
         self.count = count
 

@@ -8,6 +8,13 @@ place** and returns the same :class:`TrainState` object. Nothing in a step
 reads a value back from the device: the clip decision is a ``torch.where``
 on the device, the schedules are indexed by a host counter, and the loss is
 returned as a 0-d tensor the caller may fetch when it wants to.
+
+When a process group exists, the train step is the data-parallel one: the
+forward and backward run inside
+:func:`~vibertgrid_tpu_torch.parallel.collectives.global_batch`, so the loss
+is the global batch's (the same value on every rank), and the gradients are
+averaged over the ranks before the clip reads them; every rank then takes
+the same clip decision and the same update.
 """
 
 from __future__ import annotations
@@ -15,8 +22,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from vibertgrid_tpu_torch.models.vibertgrid import Batch, ViBERTgridNet
+from vibertgrid_tpu_torch.parallel.collectives import average_gradients, global_batch
 from vibertgrid_tpu_torch.train.optim import DualOptimizer
 
 
@@ -45,16 +54,22 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
     """``train_step(state, batch, seeds) -> (state, loss)``: one update of
     ``state`` in place. ``seeds``: the step's seed stream (``next() -> int``)
     for the dropout sites and the sampled losses. Clipping reproduces the
-    reference's "clip when the loss spikes" rule."""
+    reference's "clip when the loss spikes" rule. With a process group (made
+    before this is called) the step is data-parallel over its ranks, each
+    rank passing its share of the global batch and the same seeds."""
+    parallel = dist.is_available() and dist.is_initialized()
 
     def train_step(state: TrainState, batch: Batch, seeds):
         model, optimizer = state.model, state.optimizer
         optimizer.zero_grad(set_to_none=True)
-        out = model(batch, train=True, compute_loss=True, seeds=seeds)
-        loss = out.total_loss
-        loss.backward()
+        with global_batch(parallel):
+            out = model(batch, train=True, compute_loss=True, seeds=seeds)
+            loss = out.total_loss
+            loss.backward()
         grads = [p.grad for g in optimizer.param_groups for p in g["params"]
                  if p.grad is not None]
+        if parallel:
+            average_gradients(grads)
         optimizer.step(grad_scale=clip_scale(loss, grads, loss_clip_tresh, clip_norm))
         state.step += 1
         return state, loss.detach()

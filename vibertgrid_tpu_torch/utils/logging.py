@@ -36,13 +36,16 @@ class TerminalLogger:
 
 
 class MetricsLogger:
-    """TensorBoard scalars (falls back to JSONL)."""
+    """TensorBoard scalars (falls back to JSONL); ``enabled=False`` (the
+    ranks other than 0) writes nothing."""
 
-    def __init__(self, logdir: str, comment: str = "") -> None:
-        os.makedirs(logdir, exist_ok=True)
+    def __init__(self, logdir: str, comment: str = "", enabled: bool = True) -> None:
         self.step = 0
         self._writer = None
         self._jsonl = None
+        if not enabled:
+            return
+        os.makedirs(logdir, exist_ok=True)
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:  # no tensorboard installed
@@ -61,7 +64,7 @@ class MetricsLogger:
             v = float(v)
             if self._writer is not None:
                 self._writer.add_scalar(f"{head}/{k}", v, s)
-            else:
+            elif self._jsonl is not None:
                 self._jsonl.write(
                     json.dumps({"t": time.time(), "step": s, f"{head}/{k}": v}) + "\n"
                 )

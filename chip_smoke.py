@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
     python3 chip_smoke.py --only serve      # build, then serving steps 1-5 alone
     python3 chip_smoke.py --only driver     # build, then step 9 alone
+    python3 chip_smoke.py --only distributed  # build, then step 10 alone
     python3 chip_smoke.py --only attention [--tree DIR]   # build, then time kernels 1 and 4
     python3 chip_smoke.py --only ffn [--tree DIR]         # build, then time kernels 2 and 5
     python3 chip_smoke.py --only proj_ln [--tree DIR]     # build, then time kernel 7
@@ -84,18 +85,37 @@
    validate of the checkpoint on the card and on the host (segments classed
    otherwise only at top-2 margins under 1e-3, loss within 1e-4); (5) the
    tiny learnability run of ``tests/test_learnability.py`` (fp32, 24 epochs)
-   held to its thresholds (best F1 above 0.5, two entity types learned).
+   held to its thresholds (best F1 above 0.5, two entity types learned);
+10. runs the distributed layer (``vibertgrid_tpu_torch/parallel``) in rank
+   processes of this script (``--rank PART DIR``), which the phase starts
+   and stops: (1) a world of one on NCCL: the bootstrap, one all-reduce and
+   the flagship bf16 train step through the data-parallel step; then two
+   ranks that share the one card over gloo (NCCL refuses two ranks on one
+   device): (2) the fp32 train step at full width, dropout off, OHEM random
+   off and on, two ranks of one document against one process of two: the
+   loss, the gradients and the two ranks' parameters bit-equal to each
+   other; (3) the flagship bf16 step at ``bench.py``'s shapes, 8 documents a
+   rank, dropout 0.1, 5 timed steps without and with ZeRO-1: every step's
+   launches (attention 12, attention backward 12, saved-residual FFN 12,
+   scatter 1, scatter backward 1), ms a step, device ms, the gradient
+   all-reduce's ms, peak memory, the optimizer state a rank keeps; (4)
+   ``driver.main`` on two ranks at ``sroie_example.yaml``'s width for one
+   epoch, replicated and with ``zero1: true`` (``eval_batch_size: 1``):
+   every step's and validate batch's launches, equal losses, F1 and fields
+   on both ranks, one checkpoint, global train and validate docs/s; then
+   ``eval.cli.main`` in this process on the checkpoint, its F1, fields and
+   every segment's class equal to the ranks' gathered validate.
 
 The ``kernels`` line gives each kernel's launches in a train step of the
 driver (step 9 (1)) where it runs there, else in a validate batch of the
 driver, else in the first path that ran it; the line before it gives them by
-path.
+path, the distributed paths among them (per rank).
 
 ``--only flagship`` is for comparing two trees on one card: run it from each
 tree's root in turns (parent, change, change, parent) in one shell command and
 read the two lines "flagship forward" and "flagship train step"; ``--only
 serve`` likewise runs step 8's parts (1) to (5) alone, ``--only driver`` step
-9. ``--only
+9, ``--only distributed`` step 10. ``--only
 attention`` does the same for the two attention kernels alone, through the
 package's public ``flash_attention`` only, so ``--tree DIR`` can point this
 script at another checkout's package (an earlier commit unpacked under a
@@ -1928,6 +1948,20 @@ def _rank_fp32(dev, tmp, rank, world):
     return out
 
 
+def _step_profile(fn) -> dict:
+    """One ``fn()`` under the profiler (host and card): the card's busy ms
+    and the collectives (``*all_reduce*`` events: count, total and largest
+    ms; the largest is the gradient all-reduce)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    reduces = [e.cpu_time_total / 1e3 for e in prof.events() if "all_reduce" in e.name]
+    return dict(device_ms=device, reduces=len(reduces), reduce_total_ms=sum(reduces),
+                reduce_max_ms=max(reduces, default=0.0))
+
+
 def _rank_bf16(dev, tmp, rank, world):
     """The flagship bf16 step at bench.py's shapes, 8 documents a rank,
     dropout 0.1, without and with ZeRO-1: each step's launches, ms a step,
@@ -1975,8 +2009,7 @@ def _rank_bf16(dev, tmp, rank, world):
                 step()
             ms = 1e3 * (time.perf_counter() - t0) / DIST_BF16_STEPS
             reduce = statistics.median(reduce_ms)
-            device_ms = _device_total_ms(step)
-            out[zero1] = dict(ms=ms, device_ms=device_ms, reduce_ms=reduce, launches=launches,
+            out[zero1] = dict(ms=ms, reduce_ms=reduce, launches=launches, **_step_profile(step),
                               losses=losses, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                               state_bytes=state_bytes(state.optimizer), replicated_bytes=full,
                               equal=_flat_params_equal(state.model))
@@ -2159,7 +2192,9 @@ def distributed_phase(dev, records):
                 print(f"{what}, rank {rank} of {DIST_WORLD} (gloo, one card), {B // DIST_WORLD} "
                       f"documents a rank: {b['ms']:.2f} ms a step, {B / b['ms'] * 1e3:.2f} global "
                       f"docs/s, device {b['device_ms']:.2f} ms a step (profiler), gradient "
-                      f"all-reduce {b['reduce_ms']:.2f} ms (median), peak memory "
+                      f"all-reduce {b['reduce_ms']:.2f} ms (median, host clock); profiler: "
+                      f"{b['reduces']} all_reduce events, {b['reduce_total_ms']:.2f} ms, largest "
+                      f"{b['reduce_max_ms']:.2f} ms; peak memory "
                       f"{b['peak_gib']:.2f} GiB, optimizer state {b['state_bytes'] / 2**20:.1f} MiB "
                       f"of {b['replicated_bytes'] / 2**20:.1f} MiB; losses "
                       f"{', '.join(f'{x:.4f}' for x in b['losses'])}")

@@ -91,15 +91,18 @@ def task_ops(inp, rank, world):
 # ---------------------------------------------------------------- train
 
 
-def tiny_train_state(inp, ohem_random: bool):
-    """The tiny config (dropout off) and its train state, seeded."""
+def tiny_train_state(inp, ohem_random: bool, classifier_mode: str = "simp"):
+    """The tiny config (dropout off) and its train state, seeded; the full
+    and CRF heads on the fused attention epilogue."""
     from vibertgrid_tpu_torch.entry import train_entry
     from vibertgrid_tpu_torch.models.bert import TextEncoderConfig
     from vibertgrid_tpu_torch.models.vibertgrid import ModelConfig
 
     text = dataclasses.replace(TextEncoderConfig.tiny("bert"), hidden_dropout=0.0,
-                               attention_dropout=0.0)
-    cfg = ModelConfig(text_config=text, ohem_random=ohem_random, **inp["model_kw"])
+                               attention_dropout=0.0,
+                               attn_epilogue="auto" if classifier_mode == "simp" else "fused")
+    cfg = ModelConfig(text_config=text, ohem_random=ohem_random,
+                      **dict(inp["model_kw"], classifier_mode=classifier_mode))
     state, _, batch = train_entry("cpu", config=cfg, hyp=inp["hyp"], shape=inp["shape"])
     return state, batch
 
@@ -141,6 +144,10 @@ def task_train(inp, rank, world):
             state, shard_batch(batch, rank, world), inp["seed"], 2,
             clip_steps=0 if ohem_random else 1)
 
+    for mode in ("full", "crf"):
+        state, batch = tiny_train_state(inp, True, mode)
+        out[mode] = run_steps(state, shard_batch(batch, rank, world), inp["seed"], 1)
+
     state, batch = tiny_train_state(inp, False)
     opt = state.optimizer
     full = state_bytes(opt)
@@ -162,6 +169,7 @@ def task_train(inp, rank, world):
 def task_eval(inp, rank, world):
     from vibertgrid_tpu_torch.data.dataset import KIEDataset, data_loader, prefetch_to_device
     from vibertgrid_tpu_torch.data.synthetic import synthetic_spec
+    from vibertgrid_tpu_torch.eval.cli import evaluate
     from vibertgrid_tpu_torch.eval.harness import validate
     from vibertgrid_tpu_torch.train import driver
     from vibertgrid_tpu_torch.train.state import TrainState, make_eval_step
@@ -173,9 +181,12 @@ def task_eval(inp, rank, world):
     test_ds = KIEDataset(os.path.join(hyp["data_root"], "test"), spec, tokenizer, train=False)
     loader = list(prefetch_to_device(
         data_loader(test_ds, collator, 1, train=False, shard=(rank, world)), torch.device("cpu")))
-    results = validate(make_eval_step(), TrainState(model=model, optimizer=None), loader, spec,
-                       eval_mode=hyp["eval_mode"], tag_to_idx=tag_to_idx, verbose=False)
-    return dict(results=results, batches=len(loader))
+    state = TrainState(model=model, optimizer=None)
+    results = validate(make_eval_step(), state, loader, spec, eval_mode=hyp["eval_mode"],
+                       tag_to_idx=tag_to_idx, verbose=False)
+    # the eval CLI's evaluate on the same weights, its loader sharded as well
+    cli = evaluate(dict(hyp, eval_batch_size=1), "sroie", spec=spec, state=state, device="cpu")
+    return dict(results=results, batches=len(loader), cli=cli)
 
 
 def task_driver(inp, rank, world):

@@ -37,6 +37,7 @@ from vibertgrid_tpu_torch.parallel.mesh import (
     get_world_size,
     init_distributed_mode,
     is_main_process,
+    setup_rank0_print,
 )
 from vibertgrid_tpu_torch.train.checkpoint import restore_model
 from vibertgrid_tpu_torch.train.driver import (
@@ -53,6 +54,7 @@ def evaluate(hyp: dict, dataset: str, spec=None, state: TrainState | None = None
     """Evaluate ``state`` (else the checkpoint that ``hyp`` names) on the test
     split under ``hyp["data_root"]``; returns :func:`validate`'s metrics."""
     init_distributed_mode(backend=hyp.get("dist_backend"))
+    setup_rank0_print()
     dev = process_device(device)
     shard = (get_rank(), get_world_size())
     tokenizer = build_tokenizer(hyp)

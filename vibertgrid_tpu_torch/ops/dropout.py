@@ -80,10 +80,7 @@ def keep_mask(shape, seed, rate: float, device, base=0) -> torch.Tensor:
     """Bool keep mask of ``shape``, hashed over the row-major flat index
     counted from ``base`` (an int or a 0-d int64 tensor)."""
     n = math.prod(shape)
-    if isinstance(base, int) and base == 0:
-        counters = torch.arange(n, dtype=torch.int32, device=device)
-    else:
-        counters = (torch.arange(n, dtype=torch.int64, device=device) + base).to(torch.int32)
+    counters = (torch.arange(n, dtype=torch.int64, device=device) + base).to(torch.int32)
     return keep_from_bits(splitmix32_i32(counters, seed), rate).reshape(tuple(shape))
 
 

@@ -50,7 +50,7 @@ from __future__ import annotations
 import torch
 
 from vibertgrid_tpu_torch.ops.dropout import splitmix32
-from vibertgrid_tpu_torch.parallel.collectives import active, all_sum, gather, index_base
+from vibertgrid_tpu_torch.parallel.collectives import all_sum, gather, index_base
 
 
 def _weight_tensor(weight, device):
@@ -102,7 +102,8 @@ def _tie_take(sum_above, cnt_above, sum_ties, cnt_ties, kept):
 def _global_topk(keys, k: int, pad: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``(values, indices)`` of this rank's ``min(k, n)`` largest ``keys``,
     the values padded with ``pad`` to ``k``, gathered from every rank:
-    ``[world·k]`` candidates that hold the global k largest."""
+    ``[world·k]`` candidates that hold the global k largest (in one process,
+    this process's k largest)."""
     kk = min(k, keys.numel())
     top = torch.topk(keys, kk)
     values = torch.cat([top.values, top.values.new_full((k - kk,), pad)])
@@ -126,10 +127,7 @@ def _masked_topk_sum(losses, mask, k: int):
     keys = torch.where(mask, _sortable_key(losses), 0).reshape(-1)
     # key of the k-th largest value; 0 ("keep everything") when fewer than k
     # elements exist at all
-    if active():
-        t = torch.topk(_global_topk(keys, k, 0)[0], k).values[-1]
-    else:
-        t = torch.topk(keys, k).values[-1] if k <= keys.numel() else keys.new_zeros(())
+    t = torch.topk(_global_topk(keys, k, 0)[0], k).values[-1]
     keys = keys.reshape(mask.shape)
     above = keys > t
     ties = (keys == t) & mask & (t > 0)
@@ -163,15 +161,13 @@ def _weighted_topk_sum(values, weights, k: int):
     if k == 0:
         return v.new_zeros(()), torch.zeros_like(n)
     keys = torch.where(w > 0, _sortable_key(v), 0)
-    if active():
-        # every key at or above the global threshold that a rank leaves out
-        # lies below k of its own candidates, so the candidates decide it
-        cand_keys, idx = _global_topk(keys, k, 0)
-        cw = w[idx]
-        cand_w = gather(torch.cat([cw, cw.new_zeros(k - cw.numel())])).reshape(-1)
-        t = _weighted_threshold(cand_keys, cand_w, k)
-    else:
-        t = _weighted_threshold(keys, w, k)
+    # every key at or above the threshold that a rank leaves out of its k
+    # largest lies below k of its own candidates, each of weight >= 1, so
+    # the candidates decide the threshold
+    cand_keys, idx = _global_topk(keys, k, 0)
+    cw = w[idx]
+    t = _weighted_threshold(cand_keys, gather(torch.cat([cw, cw.new_zeros(k - cw.numel())])
+                                              ).reshape(-1), k)
     above = keys > t
     ties = (keys == t) & (w > 0) & (t > 0)
     kept = n.clamp(max=k)
@@ -198,18 +194,13 @@ def _random_subsample_masks(cat_masks, limits, seed: int):
     outs = []
     for mask, limit in zip(cat_masks, limits):
         flat = mask.reshape(-1)
-        if not active():
-            limit = min(limit, n)
         if limit <= 0:
             keep = torch.zeros_like(flat)
         else:
             keyed = torch.where(flat, bits, -1)
             # the limit-th largest key of the category; -1 (keep the whole
             # category) when it has fewer entries than the limit
-            if active():
-                t = torch.topk(_global_topk(keyed, limit, -1)[0], limit).values[-1]
-            else:
-                t = torch.topk(keyed, limit).values[-1]
+            t = torch.topk(_global_topk(keyed, limit, -1)[0], limit).values[-1]
             keep = flat & (keyed >= t)
         outs.append(keep.reshape(mask.shape))
     return outs

@@ -41,7 +41,6 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class _Group:
-    group: object
     rank: int
     world: int
 
@@ -51,12 +50,10 @@ _ACTIVE: contextvars.ContextVar[_Group | None] = contextvars.ContextVar("global_
 
 
 @contextlib.contextmanager
-def global_batch(enabled: bool = True, group=None):
+def global_batch(enabled: bool = True):
     """Make the batch-wide reductions of the code inside global over the
-    ranks of ``group`` (the default group); ``enabled=False`` leaves them
-    local."""
-    token = _ACTIVE.set(_Group(group, dist.get_rank(group), dist.get_world_size(group))
-                        if enabled else None)
+    ranks of the process group; ``enabled=False`` leaves them local."""
+    token = _ACTIVE.set(_Group(dist.get_rank(), dist.get_world_size()) if enabled else None)
     try:
         yield
     finally:
@@ -69,34 +66,26 @@ def active() -> bool:
 
 def _all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     y = x.detach().clone().contiguous()
-    dist.all_reduce(y, op=op, group=_ACTIVE.get().group)
+    dist.all_reduce(y, op=op)
     return y
 
 
 class _AllSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone().contiguous()
-        dist.all_reduce(y, group=group)
-        return y
+    def forward(ctx, x):
+        return _all_reduce(x)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone().contiguous()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return _all_reduce(grad)
 
 
 def all_sum(x: torch.Tensor) -> torch.Tensor:
     """``Σ_ranks x``; its backward sums the gradients over the ranks (see
     the module docstring). The identity outside :func:`global_batch`."""
-    g = _ACTIVE.get()
-    if g is None:
+    if _ACTIVE.get() is None:
         return x
-    if x.requires_grad:
-        return _AllSum.apply(x, g.group)
-    return _all_reduce(x)
+    return _AllSum.apply(x) if x.requires_grad else _all_reduce(x)
 
 
 def all_max(x: torch.Tensor) -> torch.Tensor:
@@ -112,7 +101,7 @@ def gather(x: torch.Tensor) -> torch.Tensor:
         return x.detach()[None]
     buf = torch.zeros((g.world, *x.shape), dtype=x.dtype, device=x.device)
     buf[g.rank] = x.detach()
-    dist.all_reduce(buf, group=g.group)
+    dist.all_reduce(buf)
     return buf
 
 
@@ -139,14 +128,13 @@ def fold_seed(seed: int) -> int:
     return ((int(seed) + g.rank * 2**16 + 2**31) % 2**32) - 2**31
 
 
-def average_gradients(grads: list[torch.Tensor], group=None) -> None:
-    """Replace each gradient by its mean over the ranks of ``group``, in
-    place: one all-reduce of the gradients packed into one buffer."""
-    world = dist.get_world_size(group)
+def average_gradients(grads: list[torch.Tensor]) -> None:
+    """Replace each gradient by its mean over the ranks, in place: one
+    all-reduce of the gradients packed into one buffer."""
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group)
-    flat.div_(world)
+    dist.all_reduce(flat)
+    flat.div_(dist.get_world_size())
     torch._foreach_copy_(grads, [c.view_as(g) for c, g in
                                  zip(flat.split([g.numel() for g in grads]), grads)])

@@ -179,9 +179,9 @@ def load_pretrained_into_state(state, hyp: dict):
 
 
 def process_device(device) -> torch.device:
-    """Join the process group the environment describes, if any, and return
-    this process's device: with a group, the card ``LOCAL_RANK`` modulo the
-    cards (made current) where ``device`` names the card."""
+    """This process's device: in a process group of more than one, the card
+    ``LOCAL_RANK`` modulo the cards (made current) where ``device`` names the
+    card."""
     dev = resolve_device(device)
     if dev.type == "cuda" and get_world_size() > 1:
         dev = torch.device("cuda", local_device_index())

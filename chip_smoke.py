@@ -1949,16 +1949,19 @@ def _rank_fp32(dev, tmp, rank, world):
 
 
 def _step_profile(fn) -> dict:
-    """One ``fn()`` under the profiler (host and card): the card's busy ms
-    and the collectives (``*all_reduce*`` events: count, total and largest
-    ms; the largest is the gradient all-reduce)."""
+    """One ``fn()`` under the profiler (host and card): the card's busy ms,
+    copies apart (gloo stages every collective through host memory), and
+    the collectives (``*all_reduce*`` events: count, total and largest ms;
+    the largest is the gradient all-reduce)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    device = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()]
+    copies = sum(ms for key, ms in rows if "memcpy" in key.lower())
     reduces = [e.cpu_time_total / 1e3 for e in prof.events() if "all_reduce" in e.name]
-    return dict(device_ms=device, reduces=len(reduces), reduce_total_ms=sum(reduces),
+    return dict(device_ms=sum(ms for _, ms in rows) - copies, copy_ms=copies,
+                reduces=len(reduces), reduce_total_ms=sum(reduces),
                 reduce_max_ms=max(reduces, default=0.0))
 
 
@@ -2191,7 +2194,8 @@ def distributed_phase(dev, records):
                     _assert_launches(records, launches, TRAIN_LAUNCHES, f"{what} (rank {rank})")
                 print(f"{what}, rank {rank} of {DIST_WORLD} (gloo, one card), {B // DIST_WORLD} "
                       f"documents a rank: {b['ms']:.2f} ms a step, {B / b['ms'] * 1e3:.2f} global "
-                      f"docs/s, device {b['device_ms']:.2f} ms a step (profiler), gradient "
+                      f"docs/s, device {b['device_ms']:.2f} ms a step and copies "
+                      f"{b['copy_ms']:.2f} ms (profiler), gradient "
                       f"all-reduce {b['reduce_ms']:.2f} ms (median, host clock); profiler: "
                       f"{b['reduces']} all_reduce events, {b['reduce_total_ms']:.2f} ms, largest "
                       f"{b['reduce_max_ms']:.2f} ms; peak memory "

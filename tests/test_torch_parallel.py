@@ -411,21 +411,32 @@ def train_single(train_runs):
 def _close_grads(got: dict, want: dict):
     """As ``tests/test_parallel_train.py`` compares the JAX package's: the
     norm within 1e-2 and the direction within cos 0.999 (BatchNorm over a
-    small batch amplifies the other summation order)."""
-    assert got.keys() == want.keys()
-    for name in want:
-        a, b = got[name].double().numpy().ravel(), want[name].double().numpy().ravel()
+    small batch amplifies the other summation order); every gradient's norm,
+    the watched ones whole."""
+    assert got["stats"].keys() == want["stats"].keys() and got["full"]
+    for name, b in want["stats"].items():
+        na, nb = got["stats"][name][1].sqrt().item(), b[1].sqrt().item()
+        assert abs(na - nb) <= 1e-2 * max(na, nb) + 1e-6, (name, na, nb)
+    for name in want["full"]:
+        a = got["full"][name].double().numpy().ravel()
+        b = want["full"][name].double().numpy().ravel()
         na, nb = np.linalg.norm(a), np.linalg.norm(b)
         if na * nb > 1e-12:
-            assert abs(na - nb) / max(na, nb) < 1e-2, (name, na, nb)
             assert float(np.dot(a, b) / (na * nb)) > 0.999, name
         else:
             np.testing.assert_allclose(a, b, atol=1e-6, err_msg=name)
 
 
 def _close_params(got: dict, want: dict, steps: int = 3):
-    for name in want:
-        a, b = got[name].numpy(), want[name].numpy()
+    """Every tensor's norm, the watched ones whole (the AdamW rule below
+    bounds the norm of a BERT tensor's difference, so its norm's change)."""
+    for name, b in want["stats"].items():
+        na, nb, n = got["stats"][name][1].sqrt().item(), b[1].sqrt().item(), b[2].item()
+        noisy = n if name.endswith("attention.key.bias") else max(1.0, 0.01 * n)
+        slack = 2 * LR_BERT * steps * noisy ** 0.5 if name.startswith("bert_model.") else 0.0
+        assert abs(na - nb) <= 1e-4 * abs(nb) + 1e-6 + slack, (name, na, nb)
+    for name in want["full"]:
+        a, b = got["full"][name].numpy(), want["full"][name].numpy()
         if name.startswith("bert_model."):
             # AdamW divides by sqrt(nu): an element whose gradient is at the
             # rounding level (the key bias's is 0 in exact arithmetic: the
@@ -441,6 +452,12 @@ def _close_params(got: dict, want: dict, steps: int = 3):
         np.testing.assert_allclose(a, b, atol=2e-4, rtol=1e-3, err_msg=name)
 
 
+def _same(a: dict, b: dict) -> bool:
+    """Bit-equal watched tensors and equal sums of every tensor."""
+    return (all(torch.equal(a["stats"][n], b["stats"][n]) for n in a["stats"])
+            and all(torch.equal(a["full"][n], b["full"][n]) for n in a["full"]))
+
+
 @pytest.mark.parametrize("key", ["ohem_random=False", "ohem_random=True"])
 def test_train_step_over_two_ranks_equals_one_process(train_run, train_single, key):
     want = train_single[key]
@@ -449,9 +466,7 @@ def test_train_step_over_two_ranks_equals_one_process(train_run, train_single, k
         _close_grads(got["grads"], want["grads"])
         _close_params(got["params"], want["params"])
         _close_params(got["final"], want["final"])  # the clipped step, with OHEM random off
-    a, b = (r[key]["final"] for r in train_run)
-    for name in a:  # the ranks hold the same model
-        assert torch.equal(a[name], b[name]), name
+    assert _same(*(r[key]["final"] for r in train_run))  # the ranks hold the same model
 
 
 @pytest.mark.parametrize("mode", ["full", "crf"])
@@ -465,7 +480,7 @@ def test_other_families_step_as_one_process(train_run, train_single, mode):
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5)
         _close_grads(got["grads"], want["grads"])
         _close_params(got["final"], want["final"], steps=1)
-    assert "field_type_head.transitions" in want["grads"] or mode == "full"
+    assert ("field_type_head.transitions" in want["grads"]["full"]) == (mode == "crf")
 
 
 def test_the_clip_fires_alike(train_run, train_single):
@@ -482,12 +497,11 @@ def test_zero1_updates_as_the_replicated_run(train_run):
     for r in train_run:
         want = r["ohem_random=False"]
         np.testing.assert_array_equal(r["zero1"]["losses"], want["losses"][:2])
-        for name, value in r["zero1"]["params"].items():  # the update is elementwise
-            np.testing.assert_allclose(value.numpy(), want["params"][name].numpy(),
-                                       atol=1e-7, rtol=1e-6, err_msg=name)
-    a, b = (r["zero1"]["final"] for r in train_run)
-    for name in a:
-        assert torch.equal(a[name], b[name]), name
+        for part in ("full", "stats"):  # the update is elementwise
+            for name, value in r["zero1"]["params"][part].items():
+                np.testing.assert_allclose(value.numpy(), want["params"][part][name].numpy(),
+                                           atol=1e-7, rtol=1e-6, err_msg=name)
+    assert _same(*(r["zero1"]["final"] for r in train_run))
 
 
 def test_zero1_holds_half_the_large_state(train_run):
@@ -502,7 +516,7 @@ def test_zero1_holds_half_the_large_state(train_run):
 
 
 def test_zero1_checkpoint_resumes_in_one_process(train_case, train_run, train_single):
-    from tests.torch_parallel_worker import run_steps, tiny_train_state
+    from tests.torch_parallel_worker import kept, run_steps, tiny_train_state
     from vibertgrid_tpu_torch.train.checkpoint import restore_checkpoint
 
     inp, _ = train_case
@@ -510,7 +524,7 @@ def test_zero1_checkpoint_resumes_in_one_process(train_case, train_run, train_si
     _, meta = restore_checkpoint(os.path.join(inp["ckpt_dir"], "zero1"), state)
     assert state.step == 2 and state.optimizer.count == 2 and not state.optimizer.shards
     plain = train_single["plain"]
-    _close_params(state.model.state_dict(), plain["params"])
+    _close_params(kept(state.model.state_dict()), plain["params"])
     resumed = run_steps(state, batch, inp["seed"], 1)
     np.testing.assert_allclose(resumed["losses"], plain["losses"][2:], rtol=2e-5)
     _close_params(resumed["final"], plain["final"])

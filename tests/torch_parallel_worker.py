@@ -107,6 +107,29 @@ def tiny_train_state(inp, ohem_random: bool, classifier_mode: str = "simp"):
     return state, batch
 
 
+# tensors compared whole; of every other tensor its sum and sum of squares
+WATCH = ("bert_model.layer.0.attention.query.weight", "bert_model.layer.0.attention.key.bias",
+         "bert_model.layer.1.intermediate.weight", "bert_model.layer.1.output_ln.bias",
+         "backbone.stem_conv.weight", "backbone.early_fusion.weight",
+         "backbone.stage3_block1.bn1.weight", "backbone.stem_bn.running_var",
+         "late_fusion.roi_embedding.bn1.bias", "late_fusion.roi_embedding.bn1.running_mean",
+         "semantic_segmentation_head.encoder.conv1.weight",
+         "semantic_segmentation_head.binary_bank.weight", "field_type_head.pos_neg_net.out.weight",
+         "field_type_head.category_net.out.bias", "field_type_head.transitions")
+
+
+def kept(named: dict) -> dict:
+    """``{"full": the watched tensors, "stats": [sum, sum of squares, size]
+    of each tensor in float64}``: what the test compares, a small part of
+    the model."""
+    def stats(t):
+        t = t.detach().double()
+        return torch.stack([t.sum(), t.square().sum(), t.new_tensor(t.numel())])
+
+    return dict(full={n: t.detach().clone() for n, t in named.items() if n in WATCH},
+                stats={n: stats(t) for n, t in named.items()})
+
+
 def run_steps(state, batch, seed: int, steps: int, clip_steps: int = 0):
     """``steps`` train steps, then ``clip_steps`` more with a clip that
     fires; each step's loss, the first step's gradients and the parameters
@@ -125,12 +148,12 @@ def run_steps(state, batch, seed: int, steps: int, clip_steps: int = 0):
         scales.append(clip_scale(loss, [p.grad for p in state.model.parameters()
                                         if p.grad is not None], **kw).item())
         if i == 0:
-            grads = {n: p.grad.clone() for n, p in state.model.named_parameters()
-                     if p.grad is not None}
+            grads = kept({n: p.grad for n, p in state.model.named_parameters()
+                          if p.grad is not None})
         if i == steps - 1:
-            params = {k: v.clone() for k, v in state.model.state_dict().items()}
-    final = {k: v.clone() for k, v in state.model.state_dict().items()}
-    return dict(losses=losses, scales=scales, grads=grads, params=params, final=final)
+            params = kept(state.model.state_dict())
+    return dict(losses=losses, scales=scales, grads=grads, params=params,
+                final=kept(state.model.state_dict()))
 
 
 def task_train(inp, rank, world):

@@ -1950,19 +1950,24 @@ def _rank_fp32(dev, tmp, rank, world):
 
 def _step_profile(fn) -> dict:
     """One ``fn()`` under the profiler (host and card): the card's busy ms,
-    copies apart (gloo stages every collective through host memory), and
-    the collectives (``*all_reduce*`` events: count, total and largest ms;
-    the largest is the gradient all-reduce)."""
+    its copies (gloo stages every collective through host memory) and its
+    waits (a stream waiting on an event, e.g. for a collective to land)
+    apart; the largest device rows; the collectives (``*all_reduce*``
+    events: count, total and largest ms; the largest is the gradient
+    all-reduce)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()]
-    copies = sum(ms for key, ms in rows if "memcpy" in key.lower())
+    rows = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    kind = lambda key: ("copy" if "memcpy" in key.lower() else
+                        "wait" if "sync" in key.lower() or "wait" in key.lower() else "busy")
+    ms = {k: sum(v for key, v in rows if kind(key) == k) for k in ("busy", "copy", "wait")}
     reduces = [e.cpu_time_total / 1e3 for e in prof.events() if "all_reduce" in e.name]
-    return dict(device_ms=sum(ms for _, ms in rows) - copies, copy_ms=copies,
-                reduces=len(reduces), reduce_total_ms=sum(reduces),
-                reduce_max_ms=max(reduces, default=0.0))
+    return dict(device_ms=ms["busy"], copy_ms=ms["copy"], wait_ms=ms["wait"],
+                top=[(key[:60], round(v, 3)) for key, v in rows[:6]], reduces=len(reduces),
+                reduce_total_ms=sum(reduces), reduce_max_ms=max(reduces, default=0.0))
 
 
 def _rank_bf16(dev, tmp, rank, world):
@@ -2194,14 +2199,16 @@ def distributed_phase(dev, records):
                     _assert_launches(records, launches, TRAIN_LAUNCHES, f"{what} (rank {rank})")
                 print(f"{what}, rank {rank} of {DIST_WORLD} (gloo, one card), {B // DIST_WORLD} "
                       f"documents a rank: {b['ms']:.2f} ms a step, {B / b['ms'] * 1e3:.2f} global "
-                      f"docs/s, device {b['device_ms']:.2f} ms a step and copies "
-                      f"{b['copy_ms']:.2f} ms (profiler), gradient "
+                      f"docs/s, device busy {b['device_ms']:.2f} ms a step, copies "
+                      f"{b['copy_ms']:.2f} ms, waits {b['wait_ms']:.2f} ms (profiler), gradient "
                       f"all-reduce {b['reduce_ms']:.2f} ms (median, host clock); profiler: "
                       f"{b['reduces']} all_reduce events, {b['reduce_total_ms']:.2f} ms, largest "
                       f"{b['reduce_max_ms']:.2f} ms; peak memory "
                       f"{b['peak_gib']:.2f} GiB, optimizer state {b['state_bytes'] / 2**20:.1f} MiB "
                       f"of {b['replicated_bytes'] / 2**20:.1f} MiB; losses "
                       f"{', '.join(f'{x:.4f}' for x in b['losses'])}")
+                if rank == 0:
+                    print(f"  largest device rows, ms: {b['top']}")
                 if not (all(x == x and abs(x) < 1e4 for x in b["losses"]) and b["equal"]):
                     raise AssertionError(f"{what}: losses {b['losses']}, ranks equal {b['equal']}")
             if ranks[0]["_rank_bf16"][zero1]["losses"] != ranks[1]["_rank_bf16"][zero1]["losses"]:

@@ -1949,14 +1949,13 @@ def _rank_fp32(dev, tmp, rank, world):
 
 
 def _step_profile(fn) -> dict:
-    """One ``fn()`` under the profiler (host and card): the card's busy ms,
-    its copies (gloo stages every collective through host memory) and its
-    waits (a stream waiting on an event, e.g. for a collective to land)
-    apart; the largest device rows; the collectives (``*all_reduce*``
-    events: count, total and largest ms; the largest is the gradient
-    all-reduce)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    """Two profiled ``fn()``: on the card alone, its busy ms with its copies
+    (gloo stages every collective through host memory) and its waits (a
+    stream waiting on an event) apart, and its largest rows; on the host
+    alone, the collectives (``*all_reduce*`` events: count, total and
+    largest ms; the largest is the gradient all-reduce). Profiled together,
+    the host's op and annotation rows would count the card's time again."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
@@ -1964,6 +1963,9 @@ def _step_profile(fn) -> dict:
     kind = lambda key: ("copy" if "memcpy" in key.lower() else
                         "wait" if "sync" in key.lower() or "wait" in key.lower() else "busy")
     ms = {k: sum(v for key, v in rows if kind(key) == k) for k in ("busy", "copy", "wait")}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
     reduces = [e.cpu_time_total / 1e3 for e in prof.events() if "all_reduce" in e.name]
     return dict(device_ms=ms["busy"], copy_ms=ms["copy"], wait_ms=ms["wait"],
                 top=[(key[:60], round(v, 3)) for key, v in rows[:6]], reduces=len(reduces),

@@ -76,11 +76,21 @@ def keep_from_bits(bits_i32: torch.Tensor, rate: float) -> torch.Tensor:
     return (bits_i32 ^ _INT_MIN) >= _i32(dropout_threshold(rate) ^ 0x80000000)
 
 
+def flat_index(n: int, device, base=0) -> torch.Tensor:
+    """``[n]`` int32 counters ``base + i`` (wrapping); ``base``: an int or a
+    0-d int64 tensor (a rank's offset in the global flat index)."""
+    counters = torch.arange(n, dtype=torch.int32, device=device)
+    if isinstance(base, torch.Tensor):
+        counters += base.to(torch.int32)
+    elif base:
+        counters += _i32(base)
+    return counters
+
+
 def keep_mask(shape, seed, rate: float, device, base=0) -> torch.Tensor:
     """Bool keep mask of ``shape``, hashed over the row-major flat index
     counted from ``base`` (an int or a 0-d int64 tensor)."""
-    n = math.prod(shape)
-    counters = (torch.arange(n, dtype=torch.int64, device=device) + base).to(torch.int32)
+    counters = flat_index(math.prod(shape), device, base)
     return keep_from_bits(splitmix32_i32(counters, seed), rate).reshape(tuple(shape))
 
 

@@ -49,8 +49,8 @@ from __future__ import annotations
 
 import torch
 
-from vibertgrid_tpu_torch.ops.dropout import splitmix32
-from vibertgrid_tpu_torch.parallel.collectives import all_sum, gather, index_base
+from vibertgrid_tpu_torch.ops.dropout import flat_index, splitmix32
+from vibertgrid_tpu_torch.parallel.collectives import active, all_sum, gather, index_base
 
 
 def _weight_tensor(weight, device):
@@ -110,6 +110,13 @@ def _global_topk(keys, k: int, pad: int) -> tuple[torch.Tensor, torch.Tensor]:
     return gather(values).reshape(-1), top.indices
 
 
+def _kth_largest(keys, k: int, pad: int) -> torch.Tensor:
+    """The k-th largest of the ranks' ``keys`` together, ``pad`` where fewer
+    than k exist (one process: its own, already in order)."""
+    cands = _global_topk(keys, k, pad)[0]
+    return torch.topk(cands, k).values[-1] if active() else cands[k - 1]
+
+
 def _sum_pairs(values, counts):
     """The ranks' sums of a list of value sums and of a list of counts."""
     return all_sum(torch.stack(values)).unbind(), all_sum(torch.stack(counts)).unbind()
@@ -127,7 +134,7 @@ def _masked_topk_sum(losses, mask, k: int):
     keys = torch.where(mask, _sortable_key(losses), 0).reshape(-1)
     # key of the k-th largest value; 0 ("keep everything") when fewer than k
     # elements exist at all
-    t = torch.topk(_global_topk(keys, k, 0)[0], k).values[-1]
+    t = _kth_largest(keys, k, 0)
     keys = keys.reshape(mask.shape)
     above = keys > t
     ties = (keys == t) & mask & (t > 0)
@@ -181,8 +188,7 @@ def _hash_bits(n: int, seed: int, device) -> torch.Tensor:
     """``[n]`` int64 random keys in ``[0, 2³²)``: splitmix32 of (seed, global
     flat index). The finalizer is a bijection, so the keys are pairwise
     distinct."""
-    index = torch.arange(n, dtype=torch.int64, device=device) + index_base(n, device)
-    return splitmix32(index.to(torch.int32), seed)
+    return splitmix32(flat_index(n, device, index_base(n, device)), seed)
 
 
 def _random_subsample_masks(cat_masks, limits, seed: int):
@@ -200,8 +206,7 @@ def _random_subsample_masks(cat_masks, limits, seed: int):
             keyed = torch.where(flat, bits, -1)
             # the limit-th largest key of the category; -1 (keep the whole
             # category) when it has fewer entries than the limit
-            t = torch.topk(_global_topk(keyed, limit, -1)[0], limit).values[-1]
-            keep = flat & (keyed >= t)
+            keep = flat & (keyed >= _kth_largest(keyed, limit, -1))
         outs.append(keep.reshape(mask.shape))
     return outs
 

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only serve      # build, then serving steps 1-5 alone
     python3 chip_smoke.py --only driver     # build, then step 9 alone
     python3 chip_smoke.py --only distributed  # build, then step 10 alone
+    python3 chip_smoke.py --only nccl       # two cards: step 10 (3) on NCCL, one card a rank
     python3 chip_smoke.py --only attention [--tree DIR]   # build, then time kernels 1 and 4
     python3 chip_smoke.py --only ffn [--tree DIR]         # build, then time kernels 2 and 5
     python3 chip_smoke.py --only proj_ln [--tree DIR]     # build, then time kernel 7
@@ -88,17 +89,31 @@
    held to its thresholds (best F1 above 0.5, two entity types learned);
 10. runs the distributed layer (``vibertgrid_tpu_torch/parallel``) in rank
    processes of this script (``--rank PART DIR``), which the phase starts
-   and stops: (1) a world of one on NCCL: the bootstrap, one all-reduce and
-   the flagship bf16 train step through the data-parallel step; then two
-   ranks that share the one card over gloo (NCCL refuses two ranks on one
-   device): (2) the fp32 train step at full width, dropout off, OHEM random
-   off and on, two ranks of one document against one process of two: the
-   loss, the gradients and the two ranks' parameters bit-equal to each
-   other; (3) the flagship bf16 step at ``bench.py``'s shapes, 8 documents a
-   rank, dropout 0.1, 5 timed steps without and with ZeRO-1: every step's
-   launches (attention 12, attention backward 12, saved-residual FFN 12,
-   scatter 1, scatter backward 1), ms a step, device ms, the gradient
-   all-reduce's ms, peak memory, the optimizer state a rank keeps; (4)
+   and stops: (1) a world of one on NCCL: the bootstrap, one all-reduce, the
+   fp32 train step at full width (loss and gradients against this process's
+   step, as in (2)) and the flagship bf16 train step through the
+   data-parallel step (its loss within ``DIST_BF16_LOSS_RTOL`` of this
+   process's); then two ranks that share the one card over gloo (NCCL
+   refuses two ranks on one device), which first run gloo's all-reduce,
+   reduce-scatter and all-gather on the card at the gradients' size (each
+   one's ms, and whether its result is right for the next kernel of the
+   caller's stream when a kernel wrote its input just before it, which it
+   must be): (2) the fp32 train step at full width, dropout off, OHEM
+   random off and on, two ranks of one document against one process of
+   two: the loss, the gradients and the two ranks' parameters bit-equal to
+   each other; (3) the flagship bf16 step at
+   ``bench.py``'s shapes, 8 documents a rank, dropout 0.1, 5 timed steps
+   without and with ZeRO-1: every step's launches (attention 12, attention
+   backward 12, saved-residual FFN 12, scatter 1, scatter backward 1), ms a
+   step, device ms, the gradient exchange's ms (the all-reduce; under ZeRO-1
+   also the split leaves' reduce-scatter), peak memory, the optimizer
+   state a rank keeps; ZeRO-1 from the replicated run's start: its first
+   loss bit-equal to the replicated run's, its distance after the last step
+   printed (two bf16 steps on the card are not bit-repeatable); before it,
+   ZeRO-1's update against the replicated one from the same parameters and
+   gradients at the flagship's shapes (three steps through
+   ``train.state.apply_gradients``, the clip firing on the third) within
+   ``ZERO1_PARAM_RTOL``; (4)
    ``driver.main`` on two ranks at ``sroie_example.yaml``'s width for one
    epoch, replicated and with ``zero1: true`` (``eval_batch_size: 1``):
    every step's and validate batch's launches, equal losses, F1 and fields
@@ -115,7 +130,8 @@ path, the distributed paths among them (per rank).
 tree's root in turns (parent, change, change, parent) in one shell command and
 read the two lines "flagship forward" and "flagship train step"; ``--only
 serve`` likewise runs step 8's parts (1) to (5) alone, ``--only driver`` step
-9, ``--only distributed`` step 10. ``--only
+9, ``--only distributed`` step 10; ``--only nccl`` runs step 10 (3) on two
+NCCL ranks, one a card (a host of two cards or more). ``--only
 attention`` does the same for the two attention kernels alone, through the
 package's public ``flash_attention`` only, so ``--tree DIR`` can point this
 script at another checkout's package (an earlier commit unpacked under a
@@ -1887,6 +1903,19 @@ def driver_phase(dev, records):
 DIST_WORLD = 2
 DIST_TIMEOUT_S = 480
 DIST_BF16_STEPS = 5
+# the NCCL world of one against this process: the same bf16 step, its
+# BatchNorms through the global-batch path (sums and counts) instead of
+# F.batch_norm, so the loss moves by bf16 roundings of the normalised maps
+DIST_BF16_LOSS_RTOL = 1e-2
+# ZeRO-1's update against the replicated one from the same parameters and
+# gradients, |θ_zero1 − θ_replicated| / |θ_replicated − θ_0|: the update is
+# elementwise and the clip's norm is summed in float64, so they are
+# bit-equal but where that norm rounds to another float32 (a relative 6e-8
+# in one step's factor); a slice written to the wrong place moves a whole
+# slice's update, a ratio of order 0.1-1. (Two bf16 train steps on the card
+# are not bit-repeatable, replicated or not, so trajectories are compared
+# on their first loss only.)
+ZERO1_PARAM_RTOL = 1e-6
 # fp32 at full width, two ranks x 1 document against one process x 2 on the
 # card: the loss within FP32_TRAIN_LOSS_RTOL, these gradients within
 # FP32_TRAIN_GRAD_RTOL in norm (the same sums in other orders: the global
@@ -1933,28 +1962,50 @@ def _flat_params_equal(model) -> bool:
     return torch.equal(flat, theirs)
 
 
-def _rank_fp32(dev, tmp, rank, world):
-    want = torch.load(os.path.join(tmp, "fp32_reference.pt"), weights_only=False)
-    out = {}
-    for ohem_random in (False, True):
-        loss, grads, state = _fp32_dist_step(dev, ohem_random, (rank, world))
-        ref = want[ohem_random]
-        out[ohem_random] = dict(
-            loss=loss, want=ref["loss"], equal=_flat_params_equal(state.model),
-            errs={n: ((g - ref["grads"][n]).norm() / ref["grads"][n].norm()).item()
-                  for n, g in grads.items()})
-        del state
-        torch.cuda.empty_cache()
+def _fp32_against_reference(dev, tmp, ohem_random, rank, world) -> dict:
+    """This rank's fp32 step against the one-process step of
+    ``fp32_reference.pt``: both losses, each watched gradient's relative
+    error, and whether the ranks hold one set of parameters."""
+    ref = torch.load(os.path.join(tmp, "fp32_reference.pt"), weights_only=False)[ohem_random]
+    loss, grads, state = _fp32_dist_step(dev, ohem_random, (rank, world))
+    out = dict(loss=loss, want=ref["loss"], equal=_flat_params_equal(state.model),
+               errs={n: ((g - ref["grads"][n]).norm() / ref["grads"][n].norm()).item()
+                     for n, g in grads.items()})
+    del state
+    torch.cuda.empty_cache()
     return out
+
+
+def _check_fp32(what, got: list):
+    """Every rank's loss within FP32_TRAIN_LOSS_RTOL of the one process's,
+    the watched gradients within FP32_TRAIN_GRAD_RTOL, the ranks' parameters
+    bit-equal; prints the line."""
+    errs = {n: max(g["errs"][n] for g in got) for n in DIST_GRADS}
+    losses = " / ".join(f"{g['loss']:.6f}" for g in got)
+    print(f"{what}: loss {losses} on the ranks, one "
+          f"process {got[0]['want']:.6f}; largest gradient error {max(errs.values()):.3e} "
+          f"({max(errs, key=errs.get)}); parameters bit-equal across ranks: "
+          f"{all(g['equal'] for g in got)}")
+    for g in got:
+        if not abs(g["loss"] - g["want"]) <= FP32_TRAIN_LOSS_RTOL * abs(g["want"]):
+            raise AssertionError(f"{what}: loss {g['loss']} vs {g['want']}")
+    if not max(errs.values()) <= FP32_TRAIN_GRAD_RTOL or not all(g["equal"] for g in got):
+        raise AssertionError(f"{what}: gradients {errs} or parameters differ")
+
+
+def _rank_fp32(dev, tmp, rank, world):
+    return {ohem: _fp32_against_reference(dev, tmp, ohem, rank, world) for ohem in (False, True)}
 
 
 def _step_profile(fn) -> dict:
     """Two profiled ``fn()``: on the card alone, its busy ms with its copies
     (gloo stages every collective through host memory) and its waits (a
     stream waiting on an event) apart, and its largest rows; on the host
-    alone, the collectives (``*all_reduce*`` events: count, total and
-    largest ms; the largest is the gradient all-reduce). Profiled together,
-    the host's op and annotation rows would count the card's time again."""
+    alone, the collectives (the ``all_reduce``, ``reduce_scatter`` and
+    ``all_gather`` events: count, total and largest ms by kind; the largest
+    all-reduce, or under ZeRO-1 reduce-scatter, is the gradients').
+    Profiled together, the host's op and annotation rows would count the
+    card's time again."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -1966,17 +2017,23 @@ def _step_profile(fn) -> dict:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         fn()
         torch.cuda.synchronize()
-    reduces = [e.cpu_time_total / 1e3 for e in prof.events() if "all_reduce" in e.name]
+    comms = {}
+    for e in prof.events():
+        kind = next((k for k in ("all_reduce", "reduce_scatter", "all_gather") if k in e.name),
+                    None)
+        if kind:
+            comms.setdefault(kind, []).append(e.cpu_time_total / 1e3)
     return dict(device_ms=ms["busy"], copy_ms=ms["copy"], wait_ms=ms["wait"],
-                top=[(key[:60], round(v, 3)) for key, v in rows[:6]], reduces=len(reduces),
-                reduce_total_ms=sum(reduces), reduce_max_ms=max(reduces, default=0.0))
+                top=[(key[:60], round(v, 3)) for key, v in rows[:6]],
+                comms={k: (len(v), round(sum(v), 2), round(max(v), 2)) for k, v in comms.items()})
 
 
 def _rank_bf16(dev, tmp, rank, world):
     """The flagship bf16 step at bench.py's shapes, 8 documents a rank,
-    dropout 0.1, without and with ZeRO-1: each step's launches, ms a step,
-    device ms, the gradient all-reduce's ms, peak memory, optimizer-state
-    bytes."""
+    dropout 0.1, without and with ZeRO-1 from the same start: each step's
+    launches, ms a step, device ms, the gradient exchange's ms a step, peak
+    memory, optimizer-state bytes; under ZeRO-1 its distance from the
+    replicated run's parameters after the same steps."""
     from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, train_entry
     from vibertgrid_tpu_torch.ops import kernels
     from vibertgrid_tpu_torch.parallel.mesh import shard_batch
@@ -1984,16 +2041,30 @@ def _rank_bf16(dev, tmp, rank, world):
     from vibertgrid_tpu_torch.train import state as state_module
     from vibertgrid_tpu_torch.train.seeds import SeedStream
 
-    average, reduce_ms = state_module.average_gradients, []
+    exchanges = {name: getattr(state_module, name)
+                 for name in ("average_gradients", "reduce_scatter_mean")}
+    reduce_ms = []  # each step's gradient exchange, host clock
 
-    def timed_average(grads):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        average(grads)
-        torch.cuda.synchronize()
-        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+    def timed(fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            reduce_ms[-1] += 1e3 * (time.perf_counter() - t0)
+            return res
+        return run
 
-    state_module.average_gradients = timed_average
+    flat = lambda model: torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    for name, fn in exchanges.items():
+        setattr(state_module, name, timed(fn))
+    clip_scale, scales = state_module.clip_scale, []  # each step's clip factor
+
+    def kept_scale(*args):
+        scales.append(clip_scale(*args))
+        return scales[-1]
+
+    state_module.clip_scale = kept_scale
     out = {}
     try:
         for zero1 in (False, True):
@@ -2002,10 +2073,14 @@ def _rank_bf16(dev, tmp, rank, world):
             full = state_bytes(state.optimizer)
             if zero1:
                 shard_optimizer_state(state.optimizer, rank, world)
+            else:
+                start = flat(state.model)
             seeds, launches, losses = SeedStream(0), [], []
+            scales.clear()
 
             def step():
                 kernels.reset_launch_counts()
+                reduce_ms.append(0.0)
                 _, loss = train_step(state, batch, seeds)
                 torch.cuda.synchronize()
                 launches.append(dict(kernels.LAUNCHES))
@@ -2022,11 +2097,56 @@ def _rank_bf16(dev, tmp, rank, world):
             out[zero1] = dict(ms=ms, reduce_ms=reduce, launches=launches, **_step_profile(step),
                               losses=losses, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                               state_bytes=state_bytes(state.optimizer), replicated_bytes=full,
-                              equal=_flat_params_equal(state.model))
+                              equal=_flat_params_equal(state.model),
+                              scales=[x.item() for x in scales])
+            if not zero1:
+                replicated = flat(state.model)
+            else:
+                mine = flat(state.model)
+                out[zero1].update(
+                    bit_equal=torch.equal(mine, replicated),
+                    param_ratio=((mine - replicated).norm() / (replicated - start).norm()).item())
+                del mine, replicated, start
             del state, batch
             torch.cuda.empty_cache()
     finally:
-        state_module.average_gradients = average
+        for name, fn in exchanges.items():
+            setattr(state_module, name, fn)
+        state_module.clip_scale = clip_scale
+    return out
+
+
+def _rank_zero1_update(dev, tmp, rank, world):
+    """ZeRO-1's update against the replicated one at the flagship's parameter
+    shapes: two copies of the model from one seed, the same gradients given
+    to both (random, this rank's own), three steps through
+    ``train.state.apply_gradients`` (the gradients' exchange, the clip, both
+    updates; the clip fires on the third): how far apart the parameters end,
+    relative to the replicated run's whole update, and whether bit-equal.
+    Unlike a train step this is repeatable on the card."""
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, train_entry
+    from vibertgrid_tpu_torch.parallel.sharding import shard_optimizer_state
+    from vibertgrid_tpu_torch.train.state import apply_gradients
+
+    plain, zero1 = (train_entry(device=dev, seed=0, config=FLAGSHIP_TRAIN)[0] for _ in range(2))
+    shard_optimizer_state(zero1.optimizer, rank, world)
+    flat = lambda model: torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    start = flat(plain.model)
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    pairs = [(a, b) for ga, gb in zip(plain.optimizer.param_groups, zero1.optimizer.param_groups)
+             for a, b in zip(ga["params"], gb["params"])]
+    for step in range(3):
+        loss = torch.tensor(20.0 if step == 2 else 1.0, device=dev)
+        for a, b in pairs:
+            a.grad = torch.randn(a.shape, device=dev, generator=gen)
+            b.grad = a.grad.clone()
+        for state in (plain, zero1):
+            apply_gradients(state.optimizer, loss, True, 10.0, 2.0)
+    want, got = flat(plain.model), flat(zero1.model)
+    out = dict(split=len(zero1.optimizer.shards), bit_equal=torch.equal(got, want),
+               ratio=((got - want).norm() / (want - start).norm()).item())
+    del plain, zero1, want, got, start
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2051,8 +2171,9 @@ def _rank_driver(dev, tmp, rank, world):
 
 
 def _rank_nccl(dev, tmp, rank, world):
-    """A world of one on NCCL: one all-reduce and the flagship bf16 train step
-    through the data-parallel step (its gradient all-reduce on NCCL)."""
+    """A world of one on NCCL: one all-reduce, the fp32 step against
+    ``fp32_reference.pt`` and the flagship bf16 train step through the
+    data-parallel step (its gradient all-reduce on NCCL)."""
     import torch.distributed as dist
 
     from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, train_entry
@@ -2061,6 +2182,7 @@ def _rank_nccl(dev, tmp, rank, world):
 
     x = torch.full((4,), 1.5, device=dev)
     dist.all_reduce(x)
+    fp32 = _fp32_against_reference(dev, tmp, False, rank, world)
     state, train_step, batch = train_entry(device=dev, seed=0, config=FLAGSHIP_TRAIN)
     kernels.reset_launch_counts()
     _, loss = train_step(state, batch, SeedStream(0))
@@ -2071,25 +2193,76 @@ def _rank_nccl(dev, tmp, rank, world):
         train_step(state, batch, SeedStream(1))
     torch.cuda.synchronize()
     return dict(backend=dist.get_backend(), reduced=x.tolist(), loss=loss.item(),
-                launches=launches, ms=1e3 * (time.perf_counter() - t0) / 3)
+                launches=launches, ms=1e3 * (time.perf_counter() - t0) / 3, fp32=fp32)
 
 
-RANK_PARTS = {"nccl": (_rank_nccl,), "gloo": (_rank_fp32, _rank_bf16, _rank_driver)}
+def _rank_collectives(dev, tmp, rank, world):
+    """Gloo's collectives on the card at the size of the gradients (2²⁶ fp32
+    a rank): each one's ms (host clock, median of 3), then one call whose
+    input a kernel writes just before it, behind a 50 ms sleep on the
+    stream, as the train step's packing copies do: the elements of its
+    result wrong when the next kernel of the stream reads them, and after a
+    device-wide sync (an input read before its kernel ran leaves them wrong
+    for good)."""
+    import torch.distributed as dist
+
+    n = 2**26
+    total = world * (world + 1) / 2  # Σ (rank + 1)
+    mine = torch.full((n,), rank + 1.0, device=dev)
+    cases = {
+        "all_reduce": (lambda out: out.copy_(mine), lambda out: dist.all_reduce(out),
+                       torch.full((n,), total, device=dev)),
+        "reduce_scatter": (lambda out: out.fill_(-1.0),
+                           lambda out: dist.reduce_scatter(out, list(mine.view(world, -1))),
+                           torch.full((n // world,), total, device=dev)),
+        "all_gather": (lambda out: out.fill_(-1.0),
+                       lambda out: dist.all_gather(list(out.view(world, -1)),
+                                                   mine[:n // world]),
+                       (torch.arange(world, device=dev, dtype=torch.float32)[:, None] + 1)
+                       .expand(world, n // world).reshape(-1)),
+    }
+    out = {}
+    for name, (reset, call, want) in cases.items():
+        got, ms = torch.empty_like(want), []
+        for _ in range(3):
+            reset(got)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(got)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        mine.fill_(-7.0)
+        reset(got)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # ~50 ms of the card's clock
+        mine.fill_(rank + 1.0)
+        if name == "all_reduce":
+            got.copy_(mine)
+        call(got)
+        early = int((got != want).sum())  # the next kernel on this stream
+        torch.cuda.synchronize()
+        out[name] = dict(ms=statistics.median(ms), early=early, late=int((got != want).sum()))
+    return out
+
+
+RANK_PARTS = {"nccl": (_rank_nccl,), "gloo": (_rank_collectives, _rank_zero1_update,
+                                               _rank_fp32, _rank_bf16, _rank_driver),
+              "nccl_cards": (_rank_zero1_update, _rank_bf16)}
 
 
 def rank_main(part: str, tmp: str) -> int:
     """One rank of the distributed phase (``--rank PART DIR``): joins the
-    group the environment describes (gloo for two ranks on one card), runs
-    the part and writes its results to ``DIR/PART_<rank>.pt``."""
+    group the environment describes (gloo for the two ranks on one card,
+    else NCCL), runs the part and writes its results to
+    ``DIR/PART_<rank>.pt``."""
     import torch.distributed as dist
 
     from vibertgrid_tpu_torch.parallel import mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    world = int(os.environ["WORLD_SIZE"])
-    mesh.init_distributed_mode(backend="gloo" if world > 1 else None)
-    rank = mesh.get_rank()
+    mesh.init_distributed_mode(backend="gloo" if part == "gloo" else None)
+    rank, world = mesh.get_rank(), mesh.get_world_size()
     dev = torch.device("cuda", mesh.local_device_index())
     torch.cuda.set_device(dev)
     out = {fn.__name__: fn(dev, tmp, rank, world) for fn in RANK_PARTS[part]}
@@ -2143,82 +2316,138 @@ def _sorted_rows(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _check_zero1_update(ranks, how: str) -> None:
+    """Each rank's ``_rank_zero1_update`` within ``ZERO1_PARAM_RTOL``."""
+    for rank, r in enumerate(ranks):
+        x = r["_rank_zero1_update"]
+        print(f"ZeRO-1 update against the replicated one ({how}), rank {rank}, {x['split']} "
+              f"split leaves, 3 steps of the same gradients: parameters {x['ratio']:.3e} of "
+              f"the update apart, bit-equal: {x['bit_equal']}")
+        if not x["ratio"] <= ZERO1_PARAM_RTOL:
+            raise AssertionError(f"ZeRO-1's update is not the replicated one ({how}): {x}")
+
+
+def _check_bf16(records, ranks, how: str, what0: str) -> None:
+    """Step 10 (3)'s report on the ranks' ``_rank_bf16``: launches, times,
+    the ranks' losses equal, ZeRO-1 against the replicated run, the state
+    each rank keeps."""
+    world = len(ranks)
+    for zero1 in (False, True):
+        what = f"{what0}{', ZeRO-1' if zero1 else ''}"
+        for rank, r in enumerate(ranks):
+            b = r["_rank_bf16"][zero1]
+            for launches in b["launches"]:
+                _assert_launches(records, launches, TRAIN_LAUNCHES, f"{what} (rank {rank})")
+            print(f"{what}, rank {rank} of {world} ({how}), {B // world} "
+                  f"documents a rank: {b['ms']:.2f} ms a step, {B / b['ms'] * 1e3:.2f} global "
+                  f"docs/s, device busy {b['device_ms']:.2f} ms a step, copies "
+                  f"{b['copy_ms']:.2f} ms, waits {b['wait_ms']:.2f} ms (profiler), gradient "
+                  f"exchange {b['reduce_ms']:.2f} ms (median, host clock); profiler: "
+                  f"collectives (count, ms, largest ms) {b['comms']}; peak memory "
+                  f"{b['peak_gib']:.2f} GiB, optimizer state {b['state_bytes'] / 2**20:.1f} MiB "
+                  f"of {b['replicated_bytes'] / 2**20:.1f} MiB; losses "
+                  f"{', '.join(f'{x:.4f}' for x in b['losses'])}")
+            if rank == 0:
+                print(f"  largest device rows, ms: {b['top']}")
+            if not (all(x == x and abs(x) < 1e4 for x in b["losses"]) and b["equal"]):
+                raise AssertionError(f"{what}: losses {b['losses']}, ranks equal {b['equal']}")
+        losses = [r["_rank_bf16"][zero1]["losses"] for r in ranks]
+        if any(x != losses[0] for x in losses):
+            raise AssertionError(f"{what}: the ranks report other losses")
+    for rank, r in enumerate(ranks):
+        z, plain = r["_rank_bf16"][True], r["_rank_bf16"][False]
+        print(f"{what0}, ZeRO-1 against replicated ({how}), rank {rank}: parameters after "
+              f"{len(z['losses'])} steps {z['param_ratio']:.3e} of the update apart "
+              f"(bit-equal: {z['bit_equal']}), every loss bit-equal: "
+              f"{z['losses'] == plain['losses']}; clip factors, replicated "
+              f"{plain['scales']}, ZeRO-1 {z['scales']}")
+        if z["losses"][0] != plain["losses"][0]:
+            raise AssertionError(f"ZeRO-1: first loss {z['losses'][0]} vs {plain['losses'][0]}")
+    kept = [r["_rank_bf16"][True]["state_bytes"] / r["_rank_bf16"][True]["replicated_bytes"]
+            for r in ranks]
+    if not all(0.45 < k < 0.6 for k in kept):
+        raise AssertionError(f"ZeRO-1: each rank keeps {kept} of the optimizer state")
+
+
+def nccl_cards_phase(records):
+    """``--only nccl`` (two cards or more): step 10 (3) with two NCCL ranks,
+    one a card, as torchrun would start them: ZeRO-1's update against the
+    replicated one, then the bf16 flagship step at 8 documents a rank
+    without and with ZeRO-1 (its gradients reduce-scattered and its updated
+    slices all-gathered by NCCL)."""
+    import tempfile
+
+    if torch.cuda.device_count() < DIST_WORLD:
+        raise AssertionError(f"--only nccl needs {DIST_WORLD} cards, the host has "
+                             f"{torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _spawn_ranks("nccl_cards", tmp, DIST_WORLD)
+    _check_zero1_update(ranks, "NCCL, one card a rank")
+    _check_bf16(records, ranks, "NCCL, one card a rank", "NCCL bf16 train step")
+
+
 def distributed_phase(dev, records):
     """Step 10: the distributed layer on the card, ranks as subprocesses."""
     import gc
     import tempfile
 
     from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, train_entry
     from vibertgrid_tpu_torch.eval import cli
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
 
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
+        # the one-process references: the fp32 step, the flagship bf16 step
+        torch.save({ohem: dict(zip(("loss", "grads"), _fp32_dist_step(dev, ohem)[:2]))
+                    for ohem in (False, True)}, os.path.join(tmp, "fp32_reference.pt"))
+        state, train_step, batch = train_entry(device=dev, seed=0, config=FLAGSHIP_TRAIN)
+        bf16_want = train_step(state, batch, SeedStream(0))[1].item()
+        del state, train_step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # 1. NCCL, a world of one
         (nccl,) = (r["_rank_nccl"] for r in _spawn_ranks("nccl", tmp, 1))
         _assert_launches(records, nccl["launches"], TRAIN_LAUNCHES, "distributed NCCL train step")
         print(f"distributed, NCCL world of 1: backend {nccl['backend']}, all_reduce "
-              f"{nccl['reduced']}, flagship bf16 B={B} step loss {nccl['loss']:.4f}, "
-              f"{nccl['ms']:.2f} ms a step")
-        if nccl["backend"] != "nccl" or nccl["reduced"] != [1.5] * 4 or not nccl["loss"] < 1e4:
-            raise AssertionError("distributed: the NCCL bootstrap or its step failed")
+              f"{nccl['reduced']}, flagship bf16 B={B} step loss {nccl['loss']:.6f}, one "
+              f"process {bf16_want:.6f}, {nccl['ms']:.2f} ms a step")
+        if nccl["backend"] != "nccl" or nccl["reduced"] != [1.5] * 4:
+            raise AssertionError("distributed: the NCCL bootstrap failed")
+        if not abs(nccl["loss"] - bf16_want) <= DIST_BF16_LOSS_RTOL * abs(bf16_want):
+            raise AssertionError(f"distributed NCCL: bf16 loss {nccl['loss']} vs {bf16_want}")
+        _check_fp32("distributed fp32, NCCL world of 1", [nccl["fp32"]])
 
-        # the one-process fp32 references, and the driver's data and configs
-        torch.save({ohem: dict(zip(("loss", "grads"), _fp32_dist_step(dev, ohem)[:2]))
-                    for ohem in (False, True)}, os.path.join(tmp, "fp32_reference.pt"))
-        gc.collect()
-        torch.cuda.empty_cache()
+        # the driver's data and configs
         root = make_synthetic_root(os.path.join(tmp, "data"), n_train=16, n_test=8, seed=0,
                                    words_range=(2, 6), segs_range=(8, 16))
         for name, extra in (("replicated", {}), ("zero1", {"zero1": True})):
             _driver_yaml(tmp, root, f"dist_{name}.yaml", end_epoch=1, eval_batch_size=1,
-                         dist_backend="gloo", save_top=os.path.join(tmp, f"weights_{name}"),
-                         **extra)
+                         save_top=os.path.join(tmp, f"weights_{name}"), **extra)
         ranks = _spawn_ranks("gloo", tmp, DIST_WORLD)
+
+        # gloo's collectives on the card (what ZeRO-1's exchange may use
+        # there), and ZeRO-1's update through them
+        _check_zero1_update(ranks, "gloo, one card")
+        for rank, r in enumerate(ranks):
+            c = r["_rank_collectives"]
+            print(f"gloo collectives on the card, rank {rank}, 256 MiB a rank: " + "; ".join(
+                f"{k} {v['ms']:.2f} ms; its input written just before it: {v['early']} "
+                f"elements wrong for the next kernel of the stream, {v['late']} after a sync"
+                for k, v in c.items()))
+            if any(v["early"] or v["late"] for v in c.values()):
+                raise AssertionError(f"gloo's collectives on the card wrong: {c}")
 
         # 2. fp32 at full width: two ranks x 1 document against one process x 2
         for ohem in (False, True):
-            got = [r["_rank_fp32"][ohem] for r in ranks]
-            errs = {n: max(g["errs"][n] for g in got) for n in DIST_GRADS}
-            print(f"distributed fp32, ohem_random={ohem}: loss {got[0]['loss']:.6f} / "
-                  f"{got[1]['loss']:.6f} on the ranks, one process {got[0]['want']:.6f}; "
-                  f"largest gradient error {max(errs.values()):.3e} "
-                  f"({max(errs, key=errs.get)}); parameters bit-equal across ranks: "
-                  f"{all(g['equal'] for g in got)}")
-            for g in got:
-                if not abs(g["loss"] - g["want"]) <= FP32_TRAIN_LOSS_RTOL * abs(g["want"]):
-                    raise AssertionError(f"distributed fp32: loss {g['loss']} vs {g['want']}")
-            if not max(errs.values()) <= FP32_TRAIN_GRAD_RTOL or not all(g["equal"] for g in got):
-                raise AssertionError(f"distributed fp32: gradients {errs} or parameters differ")
+            _check_fp32(f"distributed fp32, ohem_random={ohem}",
+                        [r["_rank_fp32"][ohem] for r in ranks])
 
         # 3. bf16 at bench.py's shapes, 8 documents a rank, without and with ZeRO-1
-        for zero1 in (False, True):
-            what = f"distributed bf16 train step{', ZeRO-1' if zero1 else ''}"
-            for rank, r in enumerate(ranks):
-                b = r["_rank_bf16"][zero1]
-                for launches in b["launches"]:
-                    _assert_launches(records, launches, TRAIN_LAUNCHES, f"{what} (rank {rank})")
-                print(f"{what}, rank {rank} of {DIST_WORLD} (gloo, one card), {B // DIST_WORLD} "
-                      f"documents a rank: {b['ms']:.2f} ms a step, {B / b['ms'] * 1e3:.2f} global "
-                      f"docs/s, device busy {b['device_ms']:.2f} ms a step, copies "
-                      f"{b['copy_ms']:.2f} ms, waits {b['wait_ms']:.2f} ms (profiler), gradient "
-                      f"all-reduce {b['reduce_ms']:.2f} ms (median, host clock); profiler: "
-                      f"{b['reduces']} all_reduce events, {b['reduce_total_ms']:.2f} ms, largest "
-                      f"{b['reduce_max_ms']:.2f} ms; peak memory "
-                      f"{b['peak_gib']:.2f} GiB, optimizer state {b['state_bytes'] / 2**20:.1f} MiB "
-                      f"of {b['replicated_bytes'] / 2**20:.1f} MiB; losses "
-                      f"{', '.join(f'{x:.4f}' for x in b['losses'])}")
-                if rank == 0:
-                    print(f"  largest device rows, ms: {b['top']}")
-                if not (all(x == x and abs(x) < 1e4 for x in b["losses"]) and b["equal"]):
-                    raise AssertionError(f"{what}: losses {b['losses']}, ranks equal {b['equal']}")
-            if ranks[0]["_rank_bf16"][zero1]["losses"] != ranks[1]["_rank_bf16"][zero1]["losses"]:
-                raise AssertionError(f"{what}: the ranks report other losses")
-        kept = [r["_rank_bf16"][True]["state_bytes"] / r["_rank_bf16"][True]["replicated_bytes"]
-                for r in ranks]
-        if not all(0.45 < k < 0.6 for k in kept):
-            raise AssertionError(f"ZeRO-1: each rank keeps {kept} of the optimizer state")
+        _check_bf16(records, ranks, "gloo, one card", "distributed bf16 train step")
 
         # 4. driver.main on two ranks, then the eval CLI in one process
         for name in ("replicated", "zero1"):
@@ -2592,9 +2821,10 @@ def main(argv) -> int:
     rank_mode = len(argv) == 3 and argv[0] == "--rank" and argv[1] in RANK_PARTS
     if not rank_mode and argv not in ([], ["--only", "flagship"], ["--only", "serve"],
                                       ["--only", "driver"], ["--only", "distributed"],
-                                      *kernel_modes):
+                                      ["--only", "nccl"], *kernel_modes):
         print("usage: python3 chip_smoke.py [--only flagship | --only serve | --only driver | "
-              f"--only distributed | --only {'|'.join(KERNEL_MODES)} [--tree DIR]]",
+              f"--only distributed | --only nccl | --only {'|'.join(KERNEL_MODES)} "
+              "[--tree DIR]]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2634,6 +2864,10 @@ def main(argv) -> int:
         return 0
     if argv == ["--only", "distributed"]:  # step 10 alone
         distributed_phase(dev, [])
+        print(smi)
+        return 0
+    if argv == ["--only", "nccl"]:  # step 10 (3) on NCCL across two cards
+        nccl_cards_phase([])
         print(smi)
         return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees

@@ -143,6 +143,20 @@ def test_a_bootstrap_that_fails_raises():
     assert p.returncode != 0 and "rendezvous" in p.stderr, p.stderr
 
 
+def test_the_backend_follows_the_device():
+    """``backend=None`` joins gloo for ranks on the CPU even where CUDA is
+    available (a world of one, so the bootstrap completes alone)."""
+    code = ("import torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "import torch.distributed as dist\n"
+            "from vibertgrid_tpu_torch.parallel.mesh import init_distributed_mode\n"
+            "init_distributed_mode(timeout=30, device='cpu')\n"
+            "print('BACKEND', dist.get_backend())\n")
+    p = subprocess.run([sys.executable, "-c", code], env=_env(0, _free_port(), world=1),
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0 and "BACKEND gloo" in p.stdout, p.stdout + p.stderr
+
+
 # ---------------------------------------------------------------------- ops
 
 

@@ -31,6 +31,7 @@ from vibertgrid_tpu_torch.data.dataset import (
     data_loader,
     prefetch_to_device,
 )
+from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.eval.harness import validate
 from vibertgrid_tpu_torch.parallel.mesh import (
     get_rank,
@@ -53,7 +54,7 @@ def evaluate(hyp: dict, dataset: str, spec=None, state: TrainState | None = None
              device="cuda") -> dict:
     """Evaluate ``state`` (else the checkpoint that ``hyp`` names) on the test
     split under ``hyp["data_root"]``; returns :func:`validate`'s metrics."""
-    init_distributed_mode(backend=hyp.get("dist_backend"))
+    init_distributed_mode(device=resolve_device(device))
     setup_rank0_print()
     dev = process_device(device)
     shard = (get_rank(), get_world_size())

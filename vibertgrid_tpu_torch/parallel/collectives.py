@@ -25,8 +25,7 @@ adjoint of the sum in the graph of all ranks together, in which L occurs
 once on each rank. So rank r's backward yields ``world · ∂L/∂(its inputs)``,
 and the mean of the ranks' parameter gradients
 (:func:`average_gradients`) is ``∂L/∂θ``, the gradient of the global-batch
-loss. Gloo works on CPU and CUDA tensors alike with ``all_reduce`` and
-``broadcast``, so every collective here is one of those two.
+loss.
 """
 
 from __future__ import annotations
@@ -43,6 +42,41 @@ import torch.distributed as dist
 class _Group:
     rank: int
     world: int
+
+
+# the collectives into and out of one flat buffer: named *_single from torch
+# 2.13 on, *_into_tensor / *_tensor before it
+_all_gather_flat = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter_flat = (getattr(dist, "reduce_scatter_single", None)
+                        or dist.reduce_scatter_tensor)
+
+
+def _rows(x: torch.Tensor) -> list[torch.Tensor]:
+    return list(x.view(dist.get_world_size(), -1).unbind(0))
+
+
+def _gloo_on_cuda(x: torch.Tensor) -> bool:
+    """Gloo on the card is driven through the forms that take a list of
+    tensors, the forms ``chip_smoke.py`` checks there."""
+    return x.is_cuda and dist.get_backend() == "gloo"
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor) -> None:
+    """Every rank's ``x`` into ``out`` (``world`` times ``x``'s elements),
+    in rank order, written straight into ``out``."""
+    if _gloo_on_cuda(x):
+        dist.all_gather(_rows(out), x.reshape(-1))
+    else:
+        _all_gather_flat(out.view(-1), x.reshape(-1))
+
+
+def reduce_scatter_into(out: torch.Tensor, rows: torch.Tensor) -> None:
+    """Row ``rank`` of the sum over the ranks of ``rows`` (``world`` rows of
+    ``out``'s elements) into ``out``."""
+    if _gloo_on_cuda(out):
+        dist.reduce_scatter(out, _rows(rows))
+    else:
+        _reduce_scatter_flat(out, rows.view(-1))
 
 
 _ACTIVE: contextvars.ContextVar[_Group | None] = contextvars.ContextVar("global_batch",
@@ -95,13 +129,12 @@ def all_max(x: torch.Tensor) -> torch.Tensor:
 
 def gather(x: torch.Tensor) -> torch.Tensor:
     """``[world, *x.shape]``: every rank's ``x`` in rank order, without a
-    gradient (one all-reduce of a buffer in which each rank fills its row)."""
+    gradient (one all-gather)."""
     g = _ACTIVE.get()
     if g is None:
         return x.detach()[None]
-    buf = torch.zeros((g.world, *x.shape), dtype=x.dtype, device=x.device)
-    buf[g.rank] = x.detach()
-    dist.all_reduce(buf)
+    buf = torch.empty((g.world, *x.shape), dtype=x.dtype, device=x.device)
+    all_gather_into(buf, x.detach().contiguous())
     return buf
 
 

@@ -52,12 +52,14 @@ def local_device_index() -> int:
     return int(os.environ.get("LOCAL_RANK", get_rank())) % max(torch.cuda.device_count(), 1)
 
 
-def init_distributed_mode(timeout: float = 300.0, backend: str | None = None) -> bool:
+def init_distributed_mode(timeout: float = 300.0, backend: str | None = None,
+                          device: str | torch.device = "cuda") -> bool:
     """Join the process group that torchrun's environment describes; returns
     whether one is joined. Without ``WORLD_SIZE`` in the environment this is
-    a no-op (one process). ``backend=None`` takes NCCL where CUDA is
-    available and gloo otherwise; an explicit backend is used as given (two
-    processes on one card need gloo: NCCL refuses two ranks on one device).
+    a no-op (one process). ``backend=None`` takes NCCL when the ranks run on
+    ``device``'s type ``cuda`` and gloo when they run on the CPU; an explicit
+    backend is used as given (two processes on one card need gloo: NCCL
+    refuses two ranks on one device).
 
     A bootstrap that fails raises, within ``timeout`` seconds: falling back
     to one process would train on a part of the data."""
@@ -72,7 +74,7 @@ def init_distributed_mode(timeout: float = 300.0, backend: str | None = None) ->
         raise RuntimeError(f"WORLD_SIZE={world} without {', '.join(missing)}: no rendezvous "
                            "to join (torchrun sets them)")
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(local_device_index())
     dist.init_process_group(

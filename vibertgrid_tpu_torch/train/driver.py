@@ -19,13 +19,12 @@ F1). It trains on the card unless the caller asks for the CPU.
 
 Under torchrun (``WORLD_SIZE`` and the rendezvous in the environment) it
 trains data-parallel, one process per card (``LOCAL_RANK`` modulo the
-cards; ``dist_backend`` names the ``torch.distributed`` backend, NCCL on
-the card by default): each process loads its share ``[rank::world]`` of
-every epoch and of the test split, ``batch_size`` documents a step (the
-global batch is ``batch_size · world``), the train step computes the
-global batch's loss and gradients (``parallel/``), ``zero1: true`` splits
-the optimizer state over the processes, and validate gathers the metrics
-from every process. ``mesh_model > 1`` (tensor parallelism) raises
+cards; NCCL on the card, gloo when the caller asks for the CPU): each
+process loads its share ``[rank::world]`` of every epoch and of the test
+split, ``batch_size`` documents a step (the global batch is ``batch_size ·
+world``), the train step computes the global batch's loss and gradients
+(``parallel/``), ``zero1: true`` splits the optimizer state over the
+processes, and validate gathers the metrics from every process. ``mesh_model > 1`` (tensor parallelism) raises
 ``NotImplementedError``.
 """
 
@@ -223,7 +222,7 @@ def train(hyp: dict, dataset: str, spec=None, max_steps: int | None = None, *,
     a bootstrap that fails raises."""
     # the torchrun / NCCL bootstrap and the rank-0 print (the reference's
     # distributed_utils.py:73-100, 57-70); no-ops in one process
-    init_distributed_mode(backend=hyp.get("dist_backend"))
+    init_distributed_mode(device=resolve_device(device))
     setup_rank0_print()
     make_mesh(hyp.get("mesh_data"), hyp.get("mesh_model") or 1)
     dev = process_device(device)

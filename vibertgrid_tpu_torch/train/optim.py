@@ -14,15 +14,16 @@ over each group's tensor lists.
 
 Under ZeRO-1 (:func:`vibertgrid_tpu_torch.parallel.sharding.shard_optimizer_state`)
 each rank keeps the state of its slices of the large parameters only,
-updates those slices, and the ranks then exchange the updated slices.
+updates those slices (from gradients of which only those slices are
+reduced), and the ranks then all-gather the updated slices.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from vibertgrid_tpu_torch.parallel.sharding import all_gather_slices
 from vibertgrid_tpu_torch.train.schedules import (
     cosine_scheduler,
     schedule_value,
@@ -124,19 +125,6 @@ class DualOptimizer(torch.optim.Optimizer):
                              for k, v in self.state[p].items()}
         self.shards = dict(shards)
 
-    def _assemble(self, pieces: dict) -> dict:
-        """``{param: whole tensor}`` from each rank's slice ``pieces[param]``
-        (every rank calls it): one all-reduce of a buffer in which each rank
-        writes its slices, in fp32 (exact for bf16 state), zeros elsewhere."""
-        params = list(pieces)
-        numels = [p.numel() for p in params]
-        flat = torch.zeros(sum(numels), dtype=torch.float32, device=params[0].device)
-        regions = [r.view(p.shape) for r, p in zip(flat.split(numels), params)]
-        for r, p in zip(regions, params):
-            self._owned(r, p).copy_(pieces[p])
-        dist.all_reduce(flat)
-        return dict(zip(params, regions))
-
     def gathered_state(self) -> dict:
         """``{param: {slot: whole tensor}}``: the state as one process holds
         it, the ZeRO-1 slices gathered from every rank (a collective when the
@@ -145,10 +133,10 @@ class DualOptimizer(torch.optim.Optimizer):
         if self.shards:
             slots = {slot for p in self.shards for slot in self.state[p]}
             for slot in sorted(slots):
-                whole = self._assemble({p: self.state[p][slot] for p in self.shards
-                                        if slot in self.state[p]})
+                whole = all_gather_slices({p: self.state[p][slot] for p in self.shards
+                                           if slot in self.state[p]}, self.shards)
                 for p, t in whole.items():
-                    out[p][slot] = t.to(self.state[p][slot].dtype)
+                    out[p][slot] = t
         return out
 
     @torch.no_grad()
@@ -166,8 +154,8 @@ class DualOptimizer(torch.optim.Optimizer):
             wd = schedule_value(self.schedules[f"wd_{kind}"], self.count)
             (self._sgd if kind == "cnn" else self._adamw)(owners, params, grads, lr, wd)
         if self.shards:  # every rank takes the others' updated slices
-            for p, whole in self._assemble({p: self._owned(p, p) for p in self.shards}).items():
-                p.copy_(whole)
+            all_gather_slices({p: self._owned(p, p) for p in self.shards}, self.shards,
+                              out={p: p for p in self.shards})
         self.count += 1
 
     _OWN = ("schedules", "momentum", "beta1", "beta2", "eps", "state_dtype", "count", "shards")

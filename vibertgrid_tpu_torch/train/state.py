@@ -13,8 +13,10 @@ When a process group exists, the train step is the data-parallel one: the
 forward and backward run inside
 :func:`~vibertgrid_tpu_torch.parallel.collectives.global_batch`, so the loss
 is the global batch's (the same value on every rank), and the gradients are
-averaged over the ranks before the clip reads them; every rank then takes
-the same clip decision and the same update.
+averaged over the ranks before the clip reads them (under ZeRO-1 those of
+the split parameters are reduce-scattered: each rank receives the mean of
+the slices it updates); every rank then takes the same clip decision and
+the same update.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.distributed as dist
 
 from vibertgrid_tpu_torch.models.vibertgrid import Batch, ViBERTgridNet
 from vibertgrid_tpu_torch.parallel.collectives import average_gradients, global_batch
+from vibertgrid_tpu_torch.parallel.sharding import reduce_scatter_mean
 from vibertgrid_tpu_torch.train.optim import DualOptimizer
 
 
@@ -40,14 +43,39 @@ def create_train_state(model: ViBERTgridNet, optimizer: DualOptimizer) -> TrainS
     return TrainState(model=model, optimizer=optimizer, step=0)
 
 
-def clip_scale(loss: torch.Tensor, grads, loss_clip_tresh: float, clip_norm: float):
+def clip_scale(loss: torch.Tensor, grads, loss_clip_tresh: float, clip_norm: float,
+               owned=()):
     """The factor of the conditional clip, on the device: ``clip_norm /
     gnorm`` when the loss spiked above ``loss_clip_tresh`` **and** the global
-    gradient norm exceeds ``clip_norm``, else 1."""
-    norms = torch._foreach_norm(grads)
-    gnorm = torch.linalg.vector_norm(torch.stack([n.float() for n in norms]))
+    gradient norm exceeds ``clip_norm``, else 1. ``owned``: under ZeRO-1,
+    this rank's slices of the split parameters' gradients, whose squares
+    the ranks sum into the norm (one all-reduce of a scalar). The norm is
+    accumulated in float64, so that it does not depend on how the
+    gradients are split (in float32 the host's sums differ by ~1e-4)."""
+    sq = torch.stack(torch._foreach_norm(grads, dtype=torch.float64)).square().sum()
+    if owned:
+        part = torch.stack(torch._foreach_norm(list(owned), dtype=torch.float64)).square().sum()
+        dist.all_reduce(part)
+        sq = sq + part
+    gnorm = sq.sqrt().float()
     clip = (loss.detach() > loss_clip_tresh) & (gnorm > clip_norm)
     return torch.where(clip, clip_norm / gnorm.clamp(min=1e-12), 1.0)
+
+
+def apply_gradients(optimizer: DualOptimizer, loss: torch.Tensor, parallel: bool,
+                    loss_clip_tresh: float, clip_norm: float) -> None:
+    """The train step after its backward: with ``parallel``, the gradients
+    averaged over the ranks (under ZeRO-1 those of the split parameters
+    reduce-scattered), then the clip and both updates."""
+    grads = {p: p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None}
+    whole = [g for p, g in grads.items() if p not in optimizer.shards]
+    owned = []
+    if parallel:
+        average_gradients(whole)
+        owned = reduce_scatter_mean({p: g for p, g in grads.items()
+                                     if p in optimizer.shards}, optimizer.shards)
+    optimizer.step(grad_scale=clip_scale(loss, whole, loss_clip_tresh, clip_norm, owned))
 
 
 def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
@@ -66,11 +94,7 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
             out = model(batch, train=True, compute_loss=True, seeds=seeds)
             loss = out.total_loss
             loss.backward()
-        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
-                 if p.grad is not None]
-        if parallel:
-            average_gradients(grads)
-        optimizer.step(grad_scale=clip_scale(loss, grads, loss_clip_tresh, clip_norm))
+        apply_gradients(optimizer, loss, parallel, loss_clip_tresh, clip_norm)
         state.step += 1
         return state, loss.detach()
 

@@ -4,8 +4,11 @@
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
     python3 chip_smoke.py --only serve      # build, then serving steps 1-5 alone
     python3 chip_smoke.py --only driver     # build, then step 9 alone
+    python3 chip_smoke.py --only determinism  # build, then step 4's pin and its diagnosis
+    python3 chip_smoke.py --only bench      # build, then bench.py's line (steps 3, 4 and two windows)
     python3 chip_smoke.py --only distributed  # build, then step 10 alone
-    python3 chip_smoke.py --only nccl       # two cards: step 10 (3) on NCCL, one card a rank
+    python3 chip_smoke.py --only tp         # build, then step 10 (5) alone
+    python3 chip_smoke.py --only nccl       # two cards: step 10 (3) and (5)'s step on NCCL
     python3 chip_smoke.py --only attention [--tree DIR]   # build, then time kernels 1 and 4
     python3 chip_smoke.py --only ffn [--tree DIR]         # build, then time kernels 2 and 5
     python3 chip_smoke.py --only proj_ln [--tree DIR]     # build, then time kernel 7
@@ -36,6 +39,14 @@
    backward 12, saved-residual FFN 12, scatter 1, scatter backward 1, the
    inference FFN 0), that loss and gradients are finite and that parameters
    and statistics moved, and reports ms a step, docs/s and the device time;
+   then pins that the step is bit-repeatable: two steps from one seed give
+   the same loss, every gradient and every parameter bit for bit, two
+   trajectories of 8 steps the same losses and parameters, and the port's
+   embedding lookup the same gradient in four runs for an id repeated over a
+   whole batch (the library's ``F.embedding``, printed beside it, does not);
+   prints one JSON line with ``bench.py``'s keys (forward docs/s at batch
+   16, the same with two windows a document, train docs/s and ms a step;
+   no ``vs_baseline``, which divides by a TPU number);
 5. drives the full-head model on the encoder with the fused attention
    epilogue at the same width, depth and shapes: the inference forward
    (launches: attention 12, epilogue 12, FFN 12, scatter 1) and the train step
@@ -48,7 +59,8 @@
 7. runs the inference forward and one train step in fp32 at batch 2 on the
    card (kernels) and on the host CPU (twins) from one set of weights and
    the same seeds, for the flagship and for the full-head model with the
-   fused epilogue, and the CRF decode, and compares them;
+   fused epilogue, the forward also at ``roberta-base``'s shapes (pad id 1,
+   positions from 2), and the CRF decode, and compares them;
 8. serves at the width of ``vibertgrid_tpu_torch/configs/deployment_sroie.yaml``
    (BERT-base-uncased, ResNet-34-FPN, simplified head, bf16, short edge 512,
    long edge at most 800) through ``InferenceEngine`` and ``BatchingEngine``
@@ -107,9 +119,8 @@
    backward 12, saved-residual FFN 12, scatter 1, scatter backward 1), ms a
    step, device ms, the gradient exchange's ms (the all-reduce; under ZeRO-1
    also the split leaves' reduce-scatter), peak memory, the optimizer
-   state a rank keeps; ZeRO-1 from the replicated run's start: its first
-   loss bit-equal to the replicated run's, its distance after the last step
-   printed (two bf16 steps on the card are not bit-repeatable); before it,
+   state a rank keeps; ZeRO-1 from the replicated run's start: every loss
+   and the parameters after the last step bit-equal to the replicated run's; before it,
    ZeRO-1's update against the replicated one from the same parameters and
    gradients at the flagship's shapes (three steps through
    ``train.state.apply_gradients``, the clip firing on the third) within
@@ -119,7 +130,19 @@
    every step's and validate batch's launches, equal losses, F1 and fields
    on both ranks, one checkpoint, global train and validate docs/s; then
    ``eval.cli.main`` in this process on the checkpoint, its F1, fields and
-   every segment's class equal to the ranks' gathered validate.
+   every segment's class equal to the ranks' gathered validate; every
+   trajectory (replicated and ZeRO-1) bit-equal; (5) tensor parallelism,
+   two gloo ranks on the card with ``mesh_model = 2`` (each holds its
+   slices of the encoder's weights and runs kernels 1 and 4 on 6 of the 12
+   heads): the fp32 step at full width on 2 documents against this
+   process's (loss, the watched gradients gathered whole), the flagship bf16
+   step at ``bench.py``'s shapes (launches: attention 12, attention backward
+   12, scatter 1 and 1, the FFN and epilogue kernels 0; 48 activation
+   all-reduces; ms a step, device ms, the all-reduces' ms, peak memory,
+   parameter bytes a rank), ``driver.main`` for an epoch with
+   ``mesh_model: 2`` (validate batches: attention 12, scatter 1) and
+   ``eval.cli.main`` in this process on its checkpoint, with the ranks' F1,
+   fields and classes.
 
 The ``kernels`` line gives each kernel's launches in a train step of the
 driver (step 9 (1)) where it runs there, else in a validate batch of the
@@ -130,8 +153,13 @@ path, the distributed paths among them (per rank).
 tree's root in turns (parent, change, change, parent) in one shell command and
 read the two lines "flagship forward" and "flagship train step"; ``--only
 serve`` likewise runs step 8's parts (1) to (5) alone, ``--only driver`` step
-9, ``--only distributed`` step 10; ``--only nccl`` runs step 10 (3) on two
-NCCL ranks, one a card (a host of two cards or more). ``--only
+9, ``--only distributed`` step 10, ``--only tp`` step 10 (5); ``--only
+nccl`` runs step 10 (3) and (5)'s bf16 step on two NCCL ranks, one a card (a
+host of two cards or more); ``--only determinism`` step 4's pin, and one
+step under ``torch.use_deterministic_algorithms(True, warn_only=True)``
+that prints the ops the library has no deterministic path for; ``--only
+bench`` prints ``bench.py``'s line from steps 3 and 4 and the two-window
+forward, for comparing trees. ``--only
 attention`` does the same for the two attention kernels alone, through the
 package's public ``flash_attention`` only, so ``--tree DIR`` can point this
 script at another checkout's package (an earlier commit unpacked under a
@@ -283,8 +311,9 @@ def _record(name, source, replaces, **kw):
 
 # (batch, T, heads, head width): a ragged T (not a multiple of the 64-row tile,
 # two valid rows in the last) with padded keys on the wgmma bodies; the same on
-# the WMMA bodies that head widths 32 and 128 take; then the flagship's.
-ATTN_SHAPES = ((2, 130, 12, 64), (2, 130, 4, 32), (B, T + 2, 12, 64))
+# the WMMA bodies that head widths 32 and 128 take; a tensor-parallel rank's 6
+# heads of the flagship (rows of 384 columns, mesh_model = 2); then the flagship's.
+ATTN_SHAPES = ((2, 130, 12, 64), (2, 130, 4, 32), (B, T + 2, 6, 64), (B, T + 2, 12, 64))
 LSE_ATOL = 1e-4  # fp32 max + log(sum) of scores of order 1-10, summed in another order
 
 
@@ -970,6 +999,124 @@ def flagship_train(dev, records):
     return B / dt, dt
 
 
+DETERMINISM_STEPS = 8
+
+
+def _repeats_of_embedding_grad(dev, lookup, runs: int = 4) -> int:
+    """How many of ``runs`` backward passes of ``lookup(weight, ids)`` give a
+    weight gradient other than the first's, for an id repeated over every
+    token of a flagship batch (the token type's case)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    weight = torch.randn(2, 768, device=dev, generator=g)
+    ids = torch.zeros(B, T + 2, dtype=torch.long, device=dev)
+    d_out = torch.randn(B, T + 2, 768, device=dev, generator=g)
+    grads = []
+    for _ in range(runs):
+        w = weight.clone().requires_grad_()
+        lookup(w, ids).backward(d_out)
+        grads.append(w.grad)
+    return sum(not torch.equal(x, grads[0]) for x in grads[1:])
+
+
+def _flagship_run(dev, steps: int):
+    """``steps`` flagship bf16 train steps from seed 0: the losses, the
+    first step's gradients and the parameters after the last step."""
+    from vibertgrid_tpu_torch.entry import train_entry
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    state, train_step, batch = train_entry(device=dev, seed=0)
+    seeds, losses, grads = SeedStream(0), [], None
+    for i in range(steps):
+        losses.append(train_step(state, batch, seeds)[1].item())
+        if i == 0:
+            grads = {n: p.grad.clone() for n, p in state.model.named_parameters()}
+    params = {n: t.clone() for n, t in state.model.state_dict().items()}
+    del state, batch
+    torch.cuda.empty_cache()
+    return losses, grads, params
+
+
+def _differing(a: dict, b: dict) -> list:
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
+def determinism(dev, probe: bool = False):
+    """The bf16 flagship train step is bit-repeatable (ROADMAP Queue 3): two
+    runs of one step from one seed give the same loss, every gradient and
+    every parameter bit for bit, and two runs of DETERMINISM_STEPS steps the
+    same losses and parameters. Beside it, the gradient of an embedding
+    lookup of one id repeated over a whole batch, four runs each: the
+    library's ``F.embedding`` (printed; it differs between runs on the card)
+    and the port's ``embedding_lookup`` (held bit-equal). With ``probe``
+    (``--only determinism``) one more step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` prints each
+    op that the library has no deterministic path for."""
+    import warnings
+
+    from vibertgrid_tpu_torch.ops.segments import embedding_lookup
+
+    library = _repeats_of_embedding_grad(dev, lambda w, ids: torch.nn.functional.embedding(ids, w))
+    ours = _repeats_of_embedding_grad(dev, embedding_lookup)
+    print(f"embedding gradient of one id repeated over {B}x{T + 2} tokens, 4 runs: "
+          f"F.embedding {library} of 3 differ from the first, embedding_lookup {ours}")
+    if ours:
+        raise AssertionError("embedding_lookup's gradient differs between runs")
+    (l1, g1, p1), (l2, g2, p2) = _flagship_run(dev, 1), _flagship_run(dev, 1)
+    grads, params = _differing(g1, g2), _differing(p1, p2)
+    print(f"flagship bf16 train step twice from one seed: loss {l1[0]:.6f} / {l2[0]:.6f}, "
+          f"gradients differing {len(grads)} of {len(g1)} {grads[:6]}, parameters and "
+          f"statistics after it differing {len(params)} of {len(p1)} {params[:6]}")
+    if l1 != l2 or grads or params:
+        raise AssertionError("two flagship train steps from one seed differ")
+    del g1, g2, p1, p2
+    (l1, _, p1), (l2, _, p2) = (_flagship_run(dev, DETERMINISM_STEPS) for _ in range(2))
+    params = _differing(p1, p2)
+    print(f"flagship bf16 trajectory of {DETERMINISM_STEPS} steps twice: losses "
+          f"{', '.join(f'{x:.6f}' for x in l1)} / {', '.join(f'{x:.6f}' for x in l2)}; "
+          f"parameters differing after it: {len(params)}")
+    if l1 != l2 or params:
+        raise AssertionError("two flagship trajectories from one seed differ")
+    del p1, p2
+    if probe:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _flagship_run(dev, 1)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        names = sorted({str(w.message).splitlines()[0][:200] for w in caught})
+        print(f"under use_deterministic_algorithms(warn_only): {len(names)} ops without a "
+              f"deterministic path: {names}")
+    torch.cuda.empty_cache()
+
+
+def two_window_forward(dev) -> float:
+    """bench.py's second row: the flagship forward at batch 16 with two
+    510-token windows a document (T = 1020, folded into the encoder's batch);
+    docs/s on the host clock."""
+    from vibertgrid_tpu_torch.entry import FLAGSHIP, make_batch
+    from vibertgrid_tpu_torch.models import ViBERTgridNet
+
+    model = ViBERTgridNet(FLAGSHIP, device=dev).eval()
+    batch = make_batch(B, H, W, 2 * T, S, VOCAB, seed=0, device=dev)
+    dt = _timed_forward(model, batch, "flagship forward, two windows (T=1020)")
+    del model, batch
+    torch.cuda.empty_cache()
+    return B / dt
+
+
+def bench_line(forward, train, two_window) -> None:
+    """One JSON line with bench.py's keys, measured here (no vs_baseline:
+    bench.py's divides by a TPU number)."""
+    print(json.dumps({
+        "metric": "docs/sec/chip joint CNN+BERT forward (SROIE 512x384, bs16)",
+        "value": round(forward[0], 2), "unit": "docs/sec/chip",
+        "value_2win": round(two_window, 2), "train_docs_per_sec": round(train[0], 2),
+        "train_ms_per_batch": round(train[1] * 1e3, 2),
+        "device": torch.cuda.get_device_name(0)}))
+
+
 def full_fused_forward(dev, records):
     """The full-head model's inference forward with the fused attention
     epilogue, and beside it the same weights on the unfused epilogue."""
@@ -1076,14 +1223,19 @@ def crf_fused(dev, records):
     _timed_forward(model, batch, "CRF-head forward with decode, fused epilogue", iters=5)
 
 
-def fp32_card_vs_host(dev, config, what):
+def fp32_card_vs_host(dev, config, what, vocab=VOCAB, pad_id=None):
+    """The inference forward in fp32 at batch 2 on the card and on the host
+    from one set of weights; ``pad_id``: the token of the masked positions
+    (RoBERTa's 1, from which its positions are counted)."""
     from vibertgrid_tpu_torch.entry import make_batch
     from vibertgrid_tpu_torch.models import ViBERTgridNet
 
     cfg = dataclasses.replace(config, compute_dtype=torch.float32)
     host = ViBERTgridNet(cfg, device="cpu", generator=torch.Generator().manual_seed(4)).eval()
     card = copy.deepcopy(host).to(dev)
-    batch = make_batch(2, H, W, T, S, VOCAB, seed=5, device="cpu")
+    batch = make_batch(2, H, W, T, S, vocab, seed=5, device="cpu")
+    if pad_id is not None:
+        batch.tokens[batch.token_mask == 0] = pad_id
     with torch.no_grad():
         want = host(batch).pred_label
         got = card(batch.to(dev)).pred_label.cpu()
@@ -1912,9 +2064,9 @@ DIST_BF16_LOSS_RTOL = 1e-2
 # elementwise and the clip's norm is summed in float64, so they are
 # bit-equal but where that norm rounds to another float32 (a relative 6e-8
 # in one step's factor); a slice written to the wrong place moves a whole
-# slice's update, a ratio of order 0.1-1. (Two bf16 train steps on the card
-# are not bit-repeatable, replicated or not, so trajectories are compared
-# on their first loss only.)
+# slice's update, a ratio of order 0.1-1. (The bf16 train steps' own
+# trajectories, replicated and ZeRO-1, are held bit-equal: the step is
+# bit-repeatable on the card.)
 ZERO1_PARAM_RTOL = 1e-6
 # fp32 at full width, two ranks x 1 document against one process x 2 on the
 # card: the loss within FP32_TRAIN_LOSS_RTOL, these gradients within
@@ -2245,9 +2397,243 @@ def _rank_collectives(dev, tmp, rank, world):
     return out
 
 
+# ---- tensor parallelism: mesh_model = 2 ----
+
+TP_MODEL = 2
+# a tensor-parallel step: kernels 1 and 4 on each rank's 6 heads, the FFN and
+# the epilogue as plain products (their partial sums meet before the
+# residual and the LayerNorm), the scatter and its backward once
+TP_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, fused_ffn_saved=0)
+TP_VALIDATE_LAUNCHES = dict(SERVE_LAUNCHES, fused_ffn=0)
+# per layer two sums of the partial products forward and two of the input
+# gradients backward
+TP_REDUCES = 4 * 12
+
+
+def _tp_layout(world: int):
+    from vibertgrid_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(world // TP_MODEL, TP_MODEL)
+
+
+def _whole(named: dict, layout) -> dict:
+    """The model group's slices of ``named`` gathered into whole tensors."""
+    from vibertgrid_tpu_torch.parallel.sharding import gather_whole, split_axis
+
+    return gather_whole(named, {n: split_axis(n, t.ndim) for n, t in named.items()}, layout)
+
+
+def _whole_params_equal(model, layout) -> bool:
+    """Whether every rank holds rank 0's whole model bit for bit."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in _whole(dict(model.named_parameters()),
+                                                     layout).values()])
+    theirs = flat.clone()
+    dist.broadcast(theirs, 0)
+    return torch.equal(flat, theirs)
+
+
+def _rank_tp_fp32(dev, tmp, rank, world):
+    """fp32 at full width, dropout off, under mesh_model = 2: the step on the
+    whole batch of 2 against the one-process step of ``fp32_reference.pt``
+    (the watched gradients gathered whole)."""
+    from vibertgrid_tpu_torch.entry import TRAIN_SHAPE, train_entry
+    from vibertgrid_tpu_torch.parallel.mesh import shard_batch
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    layout = _tp_layout(world)
+    ref = torch.load(os.path.join(tmp, "fp32_reference.pt"), weights_only=False)[False]
+    cfg = dataclasses.replace(_fp32_dist_config(False), mesh=layout)
+    state, train_step, batch = train_entry(device=dev, seed=6, config=cfg,
+                                           shape=dict(TRAIN_SHAPE, b=2))
+    _, loss = train_step(state, shard_batch(batch, layout.data_index, layout.data),
+                         SeedStream(7))
+    grads = _whole({n: state.model.get_parameter(n).grad for n in DIST_GRADS}, layout)
+    out = dict(loss=loss.item(), want=ref["loss"], equal=_whole_params_equal(state.model, layout),
+               errs={n: ((g.cpu() - ref["grads"][n]).norm() / ref["grads"][n].norm()).item()
+                     for n, g in grads.items()})
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_tp_bf16(dev, tmp, rank, world):
+    """The flagship bf16 step at bench.py's shapes under mesh_model = 2 (the
+    whole batch of 16 on each model group), dropout 0.1: every step's
+    launches, ms a step, device ms and the collectives (profiler), the
+    activation all-reduces of one step each timed alone (count and host ms,
+    each between two synchronisations), peak memory, the parameter bytes
+    this rank holds, the losses."""
+    from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, train_entry
+    from vibertgrid_tpu_torch.ops import kernels
+    from vibertgrid_tpu_torch.parallel import collectives
+    from vibertgrid_tpu_torch.parallel.mesh import shard_batch
+    from vibertgrid_tpu_torch.train.seeds import SeedStream
+
+    layout = _tp_layout(world)
+    state, train_step, batch = train_entry(device=dev, seed=0,
+                                           config=dataclasses.replace(FLAGSHIP_TRAIN, mesh=layout))
+    batch = shard_batch(batch, layout.data_index, layout.data)
+    seeds, launches, losses = SeedStream(0), [], []
+
+    def step():
+        kernels.reset_launch_counts()
+        _, loss = train_step(state, batch, seeds)
+        torch.cuda.synchronize()
+        launches.append(dict(kernels.LAUNCHES))
+        losses.append(loss.item())
+
+    step()  # warm
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(DIST_BF16_STEPS):
+        step()
+    ms = 1e3 * (time.perf_counter() - t0) / DIST_BF16_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = _step_profile(step)
+    reduces, all_reduce = [], collectives._all_reduce
+
+    def timed(x, op=collectives.dist.ReduceOp.SUM, group=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = all_reduce(x, op, group)
+        torch.cuda.synchronize()
+        if group is layout.model_group:
+            reduces.append((1e3 * (time.perf_counter() - t0), x.numel() * x.element_size()))
+        return y
+
+    collectives._all_reduce = timed
+    try:
+        step()
+    finally:
+        collectives._all_reduce = all_reduce
+    out = dict(ms=ms, launches=launches, losses=losses, peak_gib=peak,
+               param_bytes=sum(p.numel() * p.element_size() for p in state.model.parameters()),
+               reduce_count=len(reduces), reduce_ms=sum(t for t, _ in reduces),
+               reduce_bytes=max((n for _, n in reduces), default=0),
+               equal=_whole_params_equal(state.model, layout),
+               **profile)
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_tp_driver(dev, tmp, rank, world):
+    """``driver.main`` for one epoch with ``mesh_model: 2``."""
+    from vibertgrid_tpu_torch.train import driver
+
+    with _instrumented(driver) as rec:
+        res = driver.main(["-c", os.path.join(tmp, "dist_tp.yaml"), "-d", "synthetic"])
+    out = dict(losses=_epoch_losses(res), f1=res["primary_F1"],
+               fields={k: v["pred"] for k, v in res["per_sample"].items()},
+               train=rec["train"], validate=rec["validate"], scores=rec["scores"][-1],
+               timings=res["timings"], steps=res["final_state"].step)
+    del res, rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_tp_bf16(records, ranks, how: str) -> None:
+    """The report on the ranks' ``_rank_tp_bf16``: launches, the activation
+    all-reduces, times and memory; the ranks' losses and whole models equal."""
+    what = f"tensor-parallel bf16 train step ({how}, mesh_model={TP_MODEL})"
+    for rank, r in enumerate(ranks):
+        b = r["_rank_tp_bf16"]
+        for launches in b["launches"]:
+            _assert_launches(records, launches, TP_TRAIN_LAUNCHES, f"{what} (rank {rank})")
+        print(f"{what}, rank {rank}, {B} documents a model group: {b['ms']:.2f} ms a step, "
+              f"{B / b['ms'] * 1e3:.2f} docs/s, device busy {b['device_ms']:.2f} ms a "
+              f"rank-step, copies {b['copy_ms']:.2f} ms, waits {b['wait_ms']:.2f} ms "
+              f"(profiler); activation all-reduces {b['reduce_count']} a step of "
+              f"{b['reduce_bytes'] / 1e6:.2f} MB, {b['reduce_ms']:.2f} ms together (each timed "
+              f"alone, host clock); profiler: collectives (count, ms, largest ms) {b['comms']}; "
+              f"peak memory {b['peak_gib']:.2f} GiB, parameters {b['param_bytes'] / 2**20:.1f} "
+              f"MiB a rank; losses {', '.join(f'{x:.4f}' for x in b['losses'])}")
+        if rank == 0:
+            print(f"  largest device rows, ms: {b['top']}")
+        if b["reduce_count"] != TP_REDUCES:
+            raise AssertionError(f"{what}: {b['reduce_count']} activation all-reduces a step")
+        if not (all(x == x and abs(x) < 1e4 for x in b["losses"]) and b["equal"]):
+            raise AssertionError(f"{what}: losses {b['losses']}, ranks equal {b['equal']}")
+    if any(r["_rank_tp_bf16"]["losses"] != ranks[0]["_rank_tp_bf16"]["losses"] for r in ranks):
+        raise AssertionError(f"{what}: the ranks report other losses")
+
+
+def tp_phase(dev, records, tmp=None, root=None):
+    """Tensor parallelism on the card (``--only tp``; the end of step 10): two
+    gloo ranks share the card with ``mesh_model: 2``: the fp32 step at full
+    width against one process, the flagship bf16 step, ``driver.main`` for an
+    epoch, then ``eval.cli.main`` in this process on its checkpoint."""
+    import tempfile
+
+    from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root
+    from vibertgrid_tpu_torch.eval import cli
+
+    t_phase = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if tmp is None:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory())
+            torch.save({False: dict(zip(("loss", "grads"), _fp32_dist_step(dev, False)[:2]))},
+                       os.path.join(tmp, "fp32_reference.pt"))
+            torch.cuda.empty_cache()
+            root = make_synthetic_root(os.path.join(tmp, "data"), n_train=16, n_test=8, seed=0,
+                                       words_range=(2, 6), segs_range=(8, 16))
+        _driver_yaml(tmp, root, "dist_tp.yaml", end_epoch=1, eval_batch_size=1,
+                     mesh_model=TP_MODEL, save_top=os.path.join(tmp, "weights_tp"))
+        ranks = _spawn_ranks("tp", tmp, DIST_WORLD)
+        _check_fp32(f"tensor-parallel fp32 (mesh_model={TP_MODEL}, 2 documents)",
+                    [r["_rank_tp_fp32"] for r in ranks])
+        _check_tp_bf16(records, ranks, "gloo, one card")
+
+        got = [r["_rank_tp_driver"] for r in ranks]
+        for rank, g in enumerate(got):
+            for kind, want in (("train", TP_TRAIN_LAUNCHES), ("validate", TP_VALIDATE_LAUNCHES)):
+                label = (f"tensor-parallel driver {kind} "
+                         f"{'step' if kind == 'train' else 'batch'} (rank {rank})")
+                for launches in g[kind]:
+                    _assert_launches(records, launches, want, label)
+        a, b = got
+        if a["losses"] != b["losses"] or a["f1"] != b["f1"] or a["fields"] != b["fields"]:
+            raise AssertionError("tensor-parallel driver: the ranks disagree")
+        saved = [e for e in os.listdir(os.path.join(tmp, "weights_tp")) if e.startswith("epoch")]
+        if len(saved) != 1:
+            raise AssertionError(f"tensor-parallel driver: checkpoints {saved}")
+        t = a["timings"]["train"][0]
+        val = ", ".join(f"{x['docs'] / x['wall_s']:.2f}" for x in a["timings"]["validate"])
+        print(f"tensor-parallel driver (mesh_model={TP_MODEL}, batch 2, gloo): {t['steps']} "
+              f"steps, {t['docs'] / t['wall_s']:.2f} train docs/s ({t['wall_s']:.2f} s), "
+              f"validate {val} docs/s (initial, final); losses "
+              f"{', '.join(f'{x:.4f}' for x in a['losses'])}; F1 {a['f1']:.6f} on both ranks")
+        evaluation = _driver_yaml(tmp, root, "tp_eval.yaml", eval_batch_size=1,
+                                  weights=os.path.join(tmp, "weights_tp", saved[0]),
+                                  result_dir=os.path.join(tmp, "result_tp"))
+        with _instrumented(cli) as rec:
+            res = cli.main(["-c", evaluation, "-d", "synthetic"])
+        # one process sums the encoder's products whole, the ranks in two
+        # halves: bf16 scores differ by roundings, so a class may differ only
+        # where the top-2 margin is within twice the largest difference
+        ours, theirs = _sorted_rows(rec["scores"][0]), _sorted_rows(a["scores"])
+        fields = {k: v["pred"] for k, v in res["per_sample"].items()}
+        err = _max_err(ours, theirs)
+        top2 = theirs.float().topk(2, dim=-1).values
+        flips = ours.argmax(-1) != theirs.argmax(-1)
+        near = (top2[:, 0] - top2[:, 1]) <= 2 * err
+        print(f"eval CLI (one process) on the tensor-parallel {saved[0]}: F1 "
+              f"{res['primary_F1']:.6f}, the ranks' validate {a['f1']:.6f}; fields equal: "
+              f"{fields == a['fields']}; segments of another class {int(flips.sum())} of "
+              f"{len(ours)}, all at top-2 margins within {2 * err:.3e}: "
+              f"{bool((near | ~flips).all())} (max |score difference| {err:.3e})")
+        if (res["primary_F1"] != a["f1"] or bool((flips & ~near).any())
+                or (fields != a["fields"] and not bool(flips.any()))):
+            raise AssertionError("eval CLI: differs from the tensor-parallel validate")
+    print(f"tensor-parallel phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 RANK_PARTS = {"nccl": (_rank_nccl,), "gloo": (_rank_collectives, _rank_zero1_update,
                                                _rank_fp32, _rank_bf16, _rank_driver),
-              "nccl_cards": (_rank_zero1_update, _rank_bf16)}
+              "tp": (_rank_tp_fp32, _rank_tp_bf16, _rank_tp_driver),
+              "nccl_cards": (_rank_zero1_update, _rank_bf16, _rank_tp_bf16)}
 
 
 def rank_main(part: str, tmp: str) -> int:
@@ -2261,7 +2647,7 @@ def rank_main(part: str, tmp: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh.init_distributed_mode(backend="gloo" if part == "gloo" else None)
+    mesh.init_distributed_mode(backend="gloo" if part in ("gloo", "tp") else None)
     rank, world = mesh.get_rank(), mesh.get_world_size()
     dev = torch.device("cuda", mesh.local_device_index())
     torch.cuda.set_device(dev)
@@ -2361,8 +2747,11 @@ def _check_bf16(records, ranks, how: str, what0: str) -> None:
               f"(bit-equal: {z['bit_equal']}), every loss bit-equal: "
               f"{z['losses'] == plain['losses']}; clip factors, replicated "
               f"{plain['scales']}, ZeRO-1 {z['scales']}")
-        if z["losses"][0] != plain["losses"][0]:
-            raise AssertionError(f"ZeRO-1: first loss {z['losses'][0]} vs {plain['losses'][0]}")
+        # the step is bit-repeatable and ZeRO-1's update elementwise: the
+        # whole trajectory is the replicated one's
+        if z["losses"] != plain["losses"] or not z["bit_equal"]:
+            raise AssertionError(f"ZeRO-1: losses {z['losses']} vs {plain['losses']}, "
+                                 f"parameters bit-equal {z['bit_equal']}")
     kept = [r["_rank_bf16"][True]["state_bytes"] / r["_rank_bf16"][True]["replicated_bytes"]
             for r in ranks]
     if not all(0.45 < k < 0.6 for k in kept):
@@ -2384,6 +2773,7 @@ def nccl_cards_phase(records):
         ranks = _spawn_ranks("nccl_cards", tmp, DIST_WORLD)
     _check_zero1_update(ranks, "NCCL, one card a rank")
     _check_bf16(records, ranks, "NCCL, one card a rank", "NCCL bf16 train step")
+    _check_tp_bf16(records, ranks, "NCCL, one card a rank")
 
 
 def distributed_phase(dev, records):
@@ -2489,6 +2879,9 @@ def distributed_phase(dev, records):
                       f"{_max_err(ours, theirs):.3e})")
                 if res["primary_F1"] != a["f1"] or fields != a["fields"] or not same:
                     raise AssertionError("eval CLI: differs from the gathered validate")
+
+        # 5. tensor parallelism, mesh_model = 2
+        tp_phase(dev, records, tmp, root)
     print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2819,13 +3212,10 @@ def main(argv) -> int:
     if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
     rank_mode = len(argv) == 3 and argv[0] == "--rank" and argv[1] in RANK_PARTS
-    if not rank_mode and argv not in ([], ["--only", "flagship"], ["--only", "serve"],
-                                      ["--only", "driver"], ["--only", "distributed"],
-                                      ["--only", "nccl"], *kernel_modes):
-        print("usage: python3 chip_smoke.py [--only flagship | --only serve | --only driver | "
-              f"--only distributed | --only nccl | --only {'|'.join(KERNEL_MODES)} "
-              "[--tree DIR]]",
-              file=sys.stderr)
+    phases = ("flagship", "determinism", "bench", "serve", "driver", "distributed", "tp", "nccl")
+    if not rank_mode and argv not in ([], *(["--only", m] for m in phases), *kernel_modes):
+        print(f"usage: python3 chip_smoke.py [--only {' | --only '.join(phases)} | "
+              f"--only {'|'.join(KERNEL_MODES)} [--tree DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -2866,8 +3256,20 @@ def main(argv) -> int:
         distributed_phase(dev, [])
         print(smi)
         return 0
-    if argv == ["--only", "nccl"]:  # step 10 (3) on NCCL across two cards
+    if argv == ["--only", "nccl"]:  # step 10 (3) and the TP step on NCCL across two cards
         nccl_cards_phase([])
+        print(smi)
+        return 0
+    if argv == ["--only", "tp"]:  # step 10 (5): tensor parallelism alone
+        tp_phase(dev, [])
+        print(smi)
+        return 0
+    if argv == ["--only", "determinism"]:  # step 4's pin, with the library's diagnosis
+        determinism(dev, probe=True)
+        print(smi)
+        return 0
+    if argv == ["--only", "bench"]:  # bench.py's line, for comparing trees
+        bench_line(flagship_forward(dev, []), flagship_train(dev, []), two_window_forward(dev))
         print(smi)
         return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees
@@ -2877,15 +3279,23 @@ def main(argv) -> int:
         return 0
     from vibertgrid_tpu_torch.entry import FLAGSHIP, FLAGSHIP_TRAIN, FULL_FUSED
 
+    # roberta-base's shapes on the flagship: vocabulary 50265, 514 positions,
+    # pad id 1 (positions count from 2), <s> 0 and </s> 2
+    roberta = dataclasses.replace(FLAGSHIP, bert_version="roberta-base", cls_token_id=0,
+                                  sep_token_id=2)
+
     records = [check(dev) for check in (
         check_attention, check_attention_bwd, check_ffn, check_ffn_saved, check_proj_ln,
         check_scatter, check_scatter_bwd)]
-    flagship_forward(dev, records)
-    flagship_train(dev, records)
+    forward = flagship_forward(dev, records)
+    train = flagship_train(dev, records)
+    determinism(dev)
+    bench_line(forward, train, two_window_forward(dev))
     full_fused_forward(dev, records)
     full_fused_train(dev, records)
     crf_fused(dev, records)
     fp32_card_vs_host(dev, FLAGSHIP, "flagship")
+    fp32_card_vs_host(dev, roberta, "roberta-base", vocab=50265, pad_id=1)
     fp32_train_card_vs_host(dev, FLAGSHIP_TRAIN, "flagship", ())
     fp32_card_vs_host(dev, FULL_FUSED, "full head, fused epilogue")
     fp32_train_card_vs_host(

@@ -140,10 +140,11 @@ def test_main_on_the_smoke_config(tmp_path, monkeypatch):
                                         ("WORLD_SIZE", "2")])
 def test_distributed_keys_raise(root, tmp_path, monkeypatch, key, value, runs):
     """In one process: ``zero1`` trains as without it (the JAX driver's
-    ZeRO-1 on a data axis of 1); a data axis of 2 raises, tensor parallelism
-    raises ``NotImplementedError`` (not ported); ``WORLD_SIZE=2`` with no
-    rendezvous raises instead of training alone. Two processes train in
-    ``tests/test_torch_parallel.py``."""
+    ZeRO-1 on a data axis of 1); a data axis of 2 and a model axis of 2
+    raise (each needs two processes); ``WORLD_SIZE=2`` with no rendezvous
+    raises instead of training alone. Two processes train in
+    ``tests/test_torch_parallel.py`` and, tensor-parallel,
+    ``tests/test_torch_tensor_parallel.py``."""
     hyp = _hyp(tmp_path, root)
     if key == "WORLD_SIZE":
         monkeypatch.setenv(key, value)
@@ -155,7 +156,7 @@ def test_distributed_keys_raise(root, tmp_path, monkeypatch, key, value, runs):
         assert not results["final_state"].optimizer.shards
         return
     raises = {"mesh_data": (ValueError, "mesh_data=2"),
-              "mesh_model": (NotImplementedError, "tensor parallelism"),
+              "mesh_model": (ValueError, "mesh_model=2"),
               "WORLD_SIZE": (RuntimeError, "rendezvous")}[key]
     with pytest.raises(raises[0], match=raises[1]):
         driver.train(hyp, "sroie", spec=synthetic_spec(), device="cpu")

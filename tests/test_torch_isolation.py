@@ -51,6 +51,7 @@ def test_scan_covers_every_sub_package():
             PORT / "data" / "dataset.py", PORT / "eval" / "harness.py", PORT / "eval" / "cli.py",
             PORT / "eval" / "seqeval_lite.py", PORT / "eval" / "criteria.py",
             PORT / "utils" / "logging.py", PORT / "utils" / "visualize.py",
+            PORT / "utils" / "profiling.py", PORT / "ops" / "segments.py",
             *(PORT / "parallel" / f"{name}.py" for name in ("mesh", "collectives", "sharding")),
             *(PORT / "preprocessing" / f"{name}.py"
               for name in ("common", "sroie", "ephoie", "funsd", "split"))} <= set(_port_files())

@@ -86,6 +86,122 @@ def test_aggregate_token_embeddings_matches_jax(mode):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
 
 
+def _scatter_mean(emb, seg_ids, mask, s):
+    """The aggregation's former formulation: ``scatter_add_`` into segment
+    sums (atomics on the card), then the mean."""
+    b, t, d = emb.shape
+    valid = mask.bool()
+    ids = torch.where(valid, seg_ids.long(), s)
+    e = torch.where(valid[..., None], emb, 0)
+    sums = e.new_zeros((b, s + 1, d)).scatter_add_(1, ids[..., None].expand(b, t, d), e)
+    counts = e.new_zeros((b, s + 1)).scatter_add_(1, ids, valid.to(e.dtype))
+    return sums[:, :-1] / counts[:, :-1].clamp_min(1)[..., None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_mean_as_a_product_matches_jax_and_the_scatter(dtype):
+    """The segment mean as one product with a 0/1 matrix (deterministic on
+    the card) against JAX ``segment_sum`` and against the port's former
+    ``scatter_add_``, in fp32 and in bf16; its gradient is the transposed
+    product, each token's segment's gradient over the count."""
+    from vibertgrid_tpu.ops.segments import aggregate_token_embeddings as jax_agg
+    from vibertgrid_tpu_torch.ops.segments import aggregate_token_embeddings
+
+    b, t, d, s = 2, 60, 16, 12
+    rng = np.random.default_rng(5)
+    emb = rng.standard_normal((b, t, d)).astype(np.float32)
+    seg_ids = rng.integers(0, s - 2, (b, t)).astype(np.int32)
+    mask = (rng.random((b, t)) > 0.3).astype(np.int32)
+    dt = getattr(torch, dtype)
+    x = _t(emb).to(dt).requires_grad_()
+    got = aggregate_token_embeddings(x, _t(seg_ids), _t(mask), num_segments=s)
+    former = _scatter_mean(_t(emb).to(dt), _t(seg_ids), _t(mask), s)
+    want = np.asarray(jax_agg(jnp.asarray(emb, getattr(jnp, dtype)), jnp.asarray(seg_ids),
+                              jnp.asarray(mask), num_segments=s).astype(jnp.float32))
+    assert got.dtype == dt
+    # fp32: sums of up to ~10 terms in other orders; bf16: the product sums
+    # in fp32 and rounds once, the scatter and XLA round after each add
+    tol = dict(atol=1e-6, rtol=0) if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got.float().detach().numpy(), want, **tol)
+    np.testing.assert_allclose(got.float().detach().numpy(), former.float().numpy(), **tol)
+    g = rng.standard_normal((b, s, d)).astype(np.float32)
+    got.backward(_t(g).to(dt))
+    counts = np.zeros((b, s))
+    for i in range(b):
+        np.add.at(counts[i], seg_ids[i][mask[i] > 0], 1)
+    rows = np.take_along_axis(g / np.maximum(counts, 1)[..., None], seg_ids[..., None], 1)
+    np.testing.assert_allclose(x.grad.float().numpy(), rows * mask[..., None], **tol)
+
+
+def test_embedding_lookup_gradient_sums_each_id_in_order():
+    """``embedding_lookup``'s gradient (a sorted segment sum) against the
+    library's embedding backward: every row, with an id that repeats
+    everywhere (the token type's case) and ids never looked up."""
+    from vibertgrid_tpu_torch.ops.segments import embedding_lookup, sorted_segment_sum
+
+    rng = np.random.default_rng(9)
+    ids = _t(rng.integers(0, 40, (3, 50)))
+    ids[1] = 7
+    weight = _t(rng.standard_normal((64, 8)).astype(np.float32))
+    g = _t(rng.standard_normal((3, 50, 8)).astype(np.float32))
+    ours = weight.clone().requires_grad_()
+    embedding_lookup(ours, ids).backward(g)
+    theirs = weight.clone().requires_grad_()
+    torch.nn.functional.embedding(ids, theirs).backward(g)
+    np.testing.assert_allclose(ours.grad.numpy(), theirs.grad.numpy(), atol=1e-5, rtol=1e-6)
+    assert not ours.grad[40:].any()
+    got = sorted_segment_sum(g.reshape(-1, 8), ids.reshape(-1), 64)
+    np.testing.assert_allclose(got.numpy(), theirs.grad.numpy(), atol=1e-5, rtol=1e-6)
+
+
+def test_nearest_upsampling_as_a_broadcast():
+    """The FPN's ``_up`` against ``F.interpolate(mode="nearest")`` and the
+    JAX package's ``repeat``: the same values, and the gradient each pixel
+    collects from its copies."""
+    from vibertgrid_tpu.models.resnet_fpn import _upsample_nearest
+    from vibertgrid_tpu_torch.models.resnet_fpn import _up
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 3, 5, 7)).astype(np.float32)
+    g = rng.standard_normal((2, 3, 10, 14)).astype(np.float32)
+    ours, former = (_t(x).requires_grad_() for _ in range(2))
+    y = _up(ours, 2)
+    np.testing.assert_array_equal(
+        y.detach().numpy(),
+        np.asarray(_upsample_nearest(jnp.asarray(x.transpose(0, 2, 3, 1)), 2)).transpose(0, 3, 1, 2))
+    y_former = torch.nn.functional.interpolate(former, scale_factor=2, mode="nearest")
+    np.testing.assert_array_equal(y.detach().numpy(), y_former.detach().numpy())
+    y.backward(_t(g))
+    y_former.backward(_t(g))
+    np.testing.assert_allclose(ours.grad.numpy(), former.grad.numpy(), atol=1e-6, rtol=0)
+    assert _up(ours, 1) is ours
+
+
+def test_crf_gold_score_by_one_hot_products():
+    """The CRF's gold-path score reads the transitions by one-hot products
+    (their gradient is a product too): the values and the transitions'
+    gradient of the former indexed reads ``transitions[tags, prev]``,
+    ``transitions[-1][last]``."""
+    from vibertgrid_tpu_torch.ops.crf import _active, _gold_score
+
+    rng = np.random.default_rng(6)
+    b, t, k = 3, 9, 6
+    trans = _t(rng.standard_normal((k, k)).astype(np.float32))
+    feats = _t(rng.standard_normal((b, t, k)).astype(np.float32))
+    tags = _t(rng.integers(0, k - 2, (b, t)))
+    lengths = _t(np.array([9, 4, 1]))
+    ours, former = (trans.clone().requires_grad_() for _ in range(2))
+    got = _gold_score(ours, feats, tags, lengths)
+    prev = torch.cat([tags.new_full((b, 1), k - 2), tags[:, :-1]], dim=1)
+    steps = former[tags, prev] + torch.gather(feats, 2, tags[..., None])[..., 0]
+    last = torch.gather(tags, 1, (lengths - 1)[:, None])[:, 0]
+    want = torch.where(_active(feats, lengths), steps, 0.0).sum(1) + former[-1][last]
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=1e-6)
+    got.sum().backward()
+    want.sum().backward()
+    np.testing.assert_allclose(ours.grad.numpy(), former.grad.numpy(), atol=1e-6)
+
+
 # ------------------------------------------------------------- rasterize
 
 

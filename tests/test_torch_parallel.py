@@ -115,15 +115,16 @@ def test_gathers_are_the_identity_in_one_process():
     x = torch.arange(6.0)
     assert collectives.all_sum(x) is x and collectives.index_base(6, "cpu") == 0
     assert collectives.fold_seed(7) == 7
-    assert mesh.make_mesh() == (1, 1) and mesh.make_mesh(1) == (1, 1)
+    assert mesh.make_mesh() == mesh.Layout() and mesh.make_mesh(1) == mesh.Layout()
     with pytest.raises(ValueError, match="mesh_data=2"):
         mesh.make_mesh(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a model axis of 2 needs two processes (tests/test_torch_tensor_parallel.py runs them)
+    with pytest.raises(ValueError, match="mesh_model=2"):
         mesh.make_mesh(1, 2)
     from vibertgrid_tpu_torch.parallel.sharding import param_shardings
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        param_shardings({})
+    layer = torch.nn.Linear(2, 2)
+    assert param_shardings(layer, mesh.make_mesh()) == {layer.weight: None, layer.bias: None}
 
 
 def test_a_bootstrap_that_fails_raises():

@@ -8,6 +8,7 @@ CPU, so its kernel wrappers take their plain twins.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -319,3 +320,39 @@ def test_eval_and_inference_steps(train_pair):
     ref = make_eval_step()(state, dataclasses.replace(batch, images=want_images))
     torch.testing.assert_close(got.pred_label, ref.pred_label)
     torch.testing.assert_close(got.total_loss, ref.total_loss)
+
+
+# ---------------------------------------------------------------- profiling
+
+
+def test_profiling_trace_writes_a_trace_file(tmp_path):
+    import json
+
+    from vibertgrid_tpu_torch.utils.profiling import trace
+
+    x, w = torch.randn(8, 16), torch.randn(32, 16)
+    with trace(str(tmp_path / "trace")) as logdir:
+        torch.nn.functional.linear(x, w)
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    assert len(files) == 1
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("linear" in e.get("name", "") or "addmm" in e.get("name", "") for e in events)
+
+
+def test_profiling_step_timer_ticks():
+    from vibertgrid_tpu_torch.utils.profiling import step_timer
+
+    timer = step_timer()
+    assert timer.mean == 0.0
+    dts = [timer.tick(torch.ones(3) * 2), timer.tick(), timer.tick(torch.tensor(1.0))]
+    assert timer.history == dts and all(dt >= 0 for dt in dts)
+    assert timer.mean == pytest.approx(sum(dts) / 3)
+
+
+def test_profiling_flops_of_a_linear_is_2mnk():
+    from vibertgrid_tpu_torch.utils.profiling import flops_estimate
+
+    m, n, k = 8, 32, 16
+    got = flops_estimate(torch.nn.functional.linear, torch.randn(m, k), torch.randn(n, k))
+    assert got == {"flops": 2 * m * n * k}

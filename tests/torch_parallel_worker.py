@@ -1,6 +1,8 @@
-"""One rank of ``tests/test_torch_parallel.py``'s two-process runs (CPU, gloo).
+"""One rank of the multi-process runs of ``tests/test_torch_parallel.py`` (two
+processes) and ``tests/test_torch_tensor_parallel.py`` (two or four), on
+the CPU over gloo.
 
-    RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=p \\
+    RANK=r WORLD_SIZE=n MASTER_ADDR=localhost MASTER_PORT=p \\
         python tests/torch_parallel_worker.py TASK INPUTS OUT_DIR
 
 Reads the inputs that the test wrote (``torch.save`` of plain containers),
@@ -216,7 +218,9 @@ def task_driver(inp, rank, world):
     from vibertgrid_tpu_torch.train import driver
 
     driver.resolve_device = lambda device: torch.device("cpu")
-    results = driver.main(["-c", inp["config"], "-d", "synthetic", "--max-steps", "2"])
+    steps = inp.get("max_steps", 2)
+    results = driver.main(["-c", inp["config"], "-d", "synthetic",
+                           *(["--max-steps", str(steps)] if steps else [])])
     optimizer = results["final_state"].optimizer
     return dict(losses=[x for e in results["timings"]["train"] for x in e["losses"]],
                 f1=results["primary_F1"], loss=results["loss"],
@@ -224,7 +228,110 @@ def task_driver(inp, rank, world):
                 docs=[e["docs"] for e in results["timings"]["train"]])
 
 
-TASKS = dict(ops=task_ops, train=task_train, eval=task_eval, driver=task_driver)
+# ------------------------------------------------------ tensor parallelism
+
+
+def tp_config(inp, layout=None, hidden_dropout: float = 0.0):
+    """The tiny config with the layout threaded in (tensor-parallel where it
+    has a model axis above 1), attention dropout 0."""
+    from vibertgrid_tpu_torch.models.bert import TextEncoderConfig
+    from vibertgrid_tpu_torch.models.vibertgrid import ModelConfig
+
+    text = dataclasses.replace(TextEncoderConfig.tiny("bert"), hidden_dropout=hidden_dropout,
+                               attention_dropout=0.0)
+    return ModelConfig(text_config=text, mesh=layout, **inp["model_kw"])
+
+
+def whole(named: dict, layout) -> dict:
+    """The model group's slices of ``named`` gathered into whole tensors."""
+    from vibertgrid_tpu_torch.parallel.sharding import gather_whole, split_axis
+
+    return gather_whole(named, {n: split_axis(n, t.ndim) for n, t in named.items()}, layout)
+
+
+def run_tp_steps(state, batch, seed: int, steps: int, layout, clip_steps: int = 0):
+    """``run_steps`` on a tensor-parallel state: the gradients and
+    parameters gathered whole before they are kept, and the clip factor as
+    each step applied it."""
+    from vibertgrid_tpu_torch.train import state as state_module
+    from vibertgrid_tpu_torch.train.seeds import step_seeds
+
+    applied = []
+    clip_scale = state_module.clip_scale
+
+    def kept_scale(*args, **kwargs):
+        applied.append(clip_scale(*args, **kwargs))
+        return applied[-1]
+
+    plain, clip = dict(loss_clip_tresh=10.0, clip_norm=2.0), dict(loss_clip_tresh=0.0,
+                                                                  clip_norm=1e-3)
+    state_module.clip_scale = kept_scale
+    losses, grads, params = [], None, None
+    try:
+        for i in range(steps + clip_steps):
+            kw = plain if i < steps else clip
+            _, loss = state_module.make_train_step(**kw)(state, batch,
+                                                         step_seeds(seed, state.step))
+            losses.append(loss.item())
+            if i == 0:
+                grads = kept(whole({n: p.grad for n, p in state.model.named_parameters()
+                                    if p.grad is not None}, layout))
+            if i == steps - 1:
+                params = kept(whole(state.model.state_dict(), layout))
+    finally:
+        state_module.clip_scale = clip_scale
+    return dict(losses=losses, scales=[x.item() for x in applied], grads=grads, params=params,
+                final=kept(whole(state.model.state_dict(), layout)))
+
+
+def task_tp_forward(inp, rank, world):
+    """``model = world``: the converted tiny weights cut to this rank's
+    slices, an evaluation forward; the local shapes of the split weights."""
+    from vibertgrid_tpu_torch.convert import megatron_slices
+    from vibertgrid_tpu_torch.entry import make_batch
+    from vibertgrid_tpu_torch.models.vibertgrid import ModelConfig, ViBERTgridNet
+
+    layout = mesh.make_mesh(1, world)
+    model = ViBERTgridNet(ModelConfig(mesh=layout, **inp["model_kw"]), device="cpu").eval()
+    model.load_state_dict(megatron_slices(inp["state"], layout))
+    with torch.no_grad():
+        pred = model(make_batch(**inp["shape"], device="cpu")).pred_label
+    return dict(pred=pred, index=(layout.data_index, layout.model_index),
+                shapes={n: tuple(p.shape) for n, p in model.named_parameters()})
+
+
+def task_tp_train(inp, rank, world):
+    """``data = 2 x model = 2``, hidden dropout on: two steps and a clipped
+    one replicated over the data group, then from a one-process checkpoint
+    one step under ZeRO-1 over the data group, saved as a checkpoint."""
+    from vibertgrid_tpu_torch.entry import train_entry
+    from vibertgrid_tpu_torch.parallel.sharding import shard_optimizer_state
+    from vibertgrid_tpu_torch.train.checkpoint import CheckpointManager
+
+    layout = mesh.make_mesh(2, world // 2)
+    cfg = tp_config(inp, layout, inp["hidden_dropout"])
+    out = {"layout": (layout.data, layout.model, layout.data_index, layout.model_index)}
+    state, _, batch = train_entry("cpu", config=cfg, hyp=inp["hyp"], shape=inp["shape"])
+    batch = shard_batch(batch, layout.data_index, layout.data)
+    out["plain"] = run_tp_steps(state, batch, inp["seed"], 2, layout, clip_steps=1)
+
+    state, _, _ = train_entry("cpu", config=cfg, hyp=inp["hyp"], shape=inp["shape"])
+    ckpt = CheckpointManager(inp["ckpt_dir"])
+    ckpt.restore("one", state)
+    shard_optimizer_state(state.optimizer, layout.data_index, layout.data,
+                          min_size=inp["min_size"], group=layout.data_group)
+    out["zero1"] = run_tp_steps(state, batch, inp["seed"], 1, layout)
+    out["zero1"].update(step=state.step, split=len(state.optimizer.shards))
+    ckpt.save(state, "tp")
+    return out
+
+
+def task_tp_driver(inp, rank, world):
+    return task_driver(dict(inp, max_steps=None), rank, world)
+
+
+TASKS = dict(ops=task_ops, train=task_train, eval=task_eval, driver=task_driver,
+             tp_forward=task_tp_forward, tp_train=task_tp_train, tp_driver=task_tp_driver)
 
 
 def main(task: str, inputs: str, out_dir: str) -> None:

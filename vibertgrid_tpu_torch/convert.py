@@ -18,6 +18,8 @@ port names its modules after the JAX tree, so only the leaves change:
 optimizer state (the SGD momentum and the Adam moments are shaped like the
 parameters, so their leaves move the same way), for
 :meth:`vibertgrid_tpu_torch.train.optim.DualOptimizer.load_named_state`.
+:func:`megatron_slices` takes one rank's slices of a converted state, for a
+tensor-parallel model.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from vibertgrid_tpu_torch.parallel.sharding import local_state
 
 _LEAF = {"scale": "weight", "embedding": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var", "transitions": "transitions"}
@@ -77,3 +81,11 @@ def optimizer_state_from_optax(opt_state) -> dict:
         for name, tensor in flat.items():
             state.setdefault(name, {})[slot] = tensor
     return {"count": int(np.asarray(sgd["count"])), "state": state}
+
+
+def megatron_slices(state_dict: Mapping, layout) -> dict[str, torch.Tensor]:
+    """The state dict of one rank of a tensor-parallel model
+    (``parallel.mesh.Layout``): each whole tensor that the JAX package's
+    Megatron rules split cut to the rank's slice (``parallel.sharding``),
+    the others as they are."""
+    return local_state(dict(state_dict), layout)

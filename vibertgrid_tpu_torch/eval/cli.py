@@ -10,9 +10,12 @@ ViBERTgrid-PyTorch checkpoint file), runs the test split through the
 dataset's entity join and filters, prints the method's P/R/F1 and writes the
 per-sample JSON report to ``<result_dir>/<checkpoint>.json``
 (``eval_SROIE.py:364-369``). Runs on the card unless the caller asks for the
-CPU. Under torchrun's environment each process scores its share
-``[rank::world]`` of the test split and the metrics are gathered from every
-process, as the training driver's validate does; rank 0 writes the report.
+CPU. Under torchrun's environment the processes form the ``(mesh_data,
+mesh_model)`` mesh of the training driver: each data shard scores its share
+``[d::data]`` of the test split (a model group of ``mesh_model`` processes
+runs the tensor-parallel encoder on it once) and the metrics are gathered
+from every data shard, as the training driver's validate does; rank 0 writes
+the report.
 """
 
 from __future__ import annotations
@@ -34,10 +37,9 @@ from vibertgrid_tpu_torch.data.dataset import (
 from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.eval.harness import validate
 from vibertgrid_tpu_torch.parallel.mesh import (
-    get_rank,
-    get_world_size,
     init_distributed_mode,
     is_main_process,
+    make_mesh,
     setup_rank0_print,
 )
 from vibertgrid_tpu_torch.train.checkpoint import restore_model
@@ -56,11 +58,12 @@ def evaluate(hyp: dict, dataset: str, spec=None, state: TrainState | None = None
     split under ``hyp["data_root"]``; returns :func:`validate`'s metrics."""
     init_distributed_mode(device=resolve_device(device))
     setup_rank0_print()
+    layout = make_mesh(hyp.get("mesh_data"), hyp.get("mesh_model") or 1)
     dev = process_device(device)
-    shard = (get_rank(), get_world_size())
+    shard = (layout.data_index, layout.data)
     tokenizer = build_tokenizer(hyp)
     spec, cfg, model, transform, collator, tag_to_idx = build_all(
-        hyp, dataset, tokenizer, spec, device=dev)
+        hyp, dataset, tokenizer, spec, device=dev, layout=layout)
     test_ds = KIEDataset(os.path.join(hyp["data_root"], "test"), spec, tokenizer, train=False)
 
     if state is None:

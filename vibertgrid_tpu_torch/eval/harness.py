@@ -38,7 +38,7 @@ from vibertgrid_tpu_torch.eval.entities import (
     sroie_result_filter,
 )
 from vibertgrid_tpu_torch.eval.seqeval_lite import bio_f1, classification_report, per_type_f1
-from vibertgrid_tpu_torch.parallel.mesh import get_world_size, process_allgather_objects
+from vibertgrid_tpu_torch.parallel.mesh import current_layout, process_allgather_objects
 
 RESULT_FILTERS: dict[str, Callable | None] = {
     "sroie": sroie_result_filter,
@@ -200,13 +200,14 @@ def validate(
                     "pred": pred_keys,
                 }
 
-    if get_world_size() > 1:
+    layout = current_layout()
+    if layout.data > 1:  # every data shard's documents; a model group computed its own once
         shards = process_allgather_objects(dict(
             losses=(losses, losses_c, losses_aux),
             counters=(recall_sum, precision_sum, num_gt, num_det),
             pred_tag_seqs=pred_tag_seqs, gt_tag_seqs=gt_tag_seqs,
             pred_gt_pairs=pred_gt_pairs, per_sample=per_sample,
-        ))
+        ), group=layout.data_group)
         losses, losses_c, losses_aux = ([x for sh in shards for x in sh["losses"][i]]
                                         for i in range(3))
         recall_sum, precision_sum, num_gt, num_det = (

@@ -20,6 +20,23 @@ records and an input or a parameter requires a gradient it is
 (under ``torch.no_grad()``) it is the residual-free ``fused_ffn``.
 ``ffn_impl="fused"`` takes ``fused_ffn`` on every path, with its
 rematerialising backward, as in the JAX package.
+
+**Tensor parallelism.** Where ``TextEncoderConfig.mesh`` is a layout with a
+model axis above 1 (``parallel/mesh.py``), each layer holds this rank's
+slices of its weights (``parallel/sharding.py``, the JAX package's Megatron
+rules) and runs Megatron's layer: the Q/K/V products on its column slices
+after *copy to the model group*, the attention kernels on its ``num_heads /
+model`` heads (the dropout seed folded with the shard, as the JAX package's
+``flash_attention_sharded`` does), the out-projection on its row slice, a
+sum over the model group, then the bias, the dropout, the residual and the
+LayerNorm; the FFN up-projection and gelu on its column slice and the
+down-projection on its row slice, a sum over the model group, then ``+ b2``,
+the dropout, the residual and the LayerNorm. The partial sums need that sum
+before the residual and the LayerNorm, so the fused FFN and epilogue kernels
+do not run there, as in the JAX package (``models/bert.py``: the fusion
+boundary); the products are ``F.linear``. Every rank of a model group draws
+the same seeds and holds the same activations between the sums, so the
+hidden-dropout masks agree across it.
 """
 
 from __future__ import annotations
@@ -28,6 +45,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vibertgrid_tpu_torch.device import resolve_device
@@ -36,6 +54,9 @@ from vibertgrid_tpu_torch.models.norm import LayerNorm
 from vibertgrid_tpu_torch.ops.dropout import hash_dropout
 from vibertgrid_tpu_torch.ops.flash_attention import flash_attention
 from vibertgrid_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_saved, fused_proj_ln
+from vibertgrid_tpu_torch.ops.segments import embedding_lookup
+from vibertgrid_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from vibertgrid_tpu_torch.parallel.sharding import local_part, split_axis
 
 # name → (hidden size, flavor); the reference's 7-entry bert_model_list
 # plus two tiny test configs.
@@ -78,6 +99,8 @@ class TextEncoderConfig:
     # "fused": the attention epilogue as one kernel (fused_proj_ln); any other
     # value: F.linear, dropout, residual and LayerNorm as separate passes.
     attn_epilogue: str = "auto"
+    # A parallel.mesh.Layout: with a model axis above 1 the layers hold their
+    # slices of the weights and run tensor-parallel (module docstring).
     mesh: Any = None
 
     @staticmethod
@@ -105,6 +128,12 @@ class TextEncoderConfig:
         return TextEncoderConfig(vocab_size=vocab_size or 30522)
 
 
+def _tp(config: TextEncoderConfig):
+    """The layout of a tensor-parallel encoder, else None."""
+    mesh = config.mesh
+    return mesh if mesh is not None and mesh.model > 1 else None
+
+
 def _draw(seeds, rate: float) -> int:
     """The next seed of the stream for a site that drops; a site at rate 0
     draws nothing."""
@@ -130,16 +159,29 @@ class SelfAttention(nn.Module):
         context before the out-projection (the fused epilogue applies it)."""
         cfg = self.config
         dt = self.dtype
+        tp = _tp(cfg)
+        heads = cfg.num_heads // (tp.model if tp else 1)
+        hidden = copy_to_model(hidden, tp)
         q = dense(hidden, self.query, dt)
         k = dense(hidden, self.key, dt)
         v = dense(hidden, self.value, dt)
         dh = cfg.hidden_size // cfg.num_heads
+        if q.shape[-1] != heads * dh:
+            raise ValueError(f"attention weights of {q.shape[-1]} outputs for {heads} local "
+                             "heads: a tensor-parallel encoder holds its slices "
+                             "(parallel.sharding.apply_shardings)")
         rate = 0.0 if deterministic else cfg.attention_dropout
         ctx = flash_attention(
-            q, k, v, attn_bias, 1.0 / float(dh) ** 0.5, cfg.num_heads,
+            q, k, v, attn_bias, 1.0 / float(dh) ** 0.5, heads,
             rate=rate, seed=_draw(seeds, rate),
         )
-        return ctx if return_ctx else dense(ctx, self.out, dt)
+        if return_ctx:
+            return ctx
+        if tp is None:
+            return dense(ctx, self.out, dt)
+        # row-parallel: this rank's partial product, summed over the model group
+        partial = F.linear(ctx.to(dt), self.out.weight.to(dt))
+        return reduce_from_model(partial, tp) + self.out.bias.to(dt)
 
 
 class EncoderLayer(nn.Module):
@@ -160,6 +202,9 @@ class EncoderLayer(nn.Module):
         b, t, d = hidden.shape
         rate = 0.0 if deterministic else self.config.hidden_dropout
         eps = self.config.layer_norm_eps
+        tp = _tp(self.config)
+        if tp is not None:
+            return self._tensor_parallel(hidden, attn_bias, deterministic, seeds, rate, tp)
         if self.config.attn_epilogue == "fused":
             ctx = self.attention(hidden, attn_bias, deterministic, seeds, return_ctx=True)
             x2d = fused_proj_ln(
@@ -182,6 +227,20 @@ class EncoderLayer(nn.Module):
         ffn = fused_ffn if residual_free else fused_ffn_saved
         out = ffn(x2d, *params, eps, rate=rate, seed=_draw(seeds, rate))
         return out.reshape(b, t, d)
+
+    def _tensor_parallel(self, hidden, attn_bias, deterministic, seeds, rate, tp):
+        """Megatron's layer on this rank's slices (module docstring); the
+        seeds are drawn in the order of the other path."""
+        dt = self.dtype
+        attn = self.attention(hidden, attn_bias, deterministic, seeds)
+        attn = hash_dropout(attn, _draw(seeds, rate), rate)
+        x = self.attention_ln(hidden + attn)
+        up = F.linear(copy_to_model(x, tp).to(dt), self.intermediate.weight.to(dt),
+                      self.intermediate.bias.to(dt))
+        partial = F.linear(F.gelu(up), self.output.weight.to(dt))
+        y = reduce_from_model(partial, tp) + self.output.bias.to(dt)
+        y = hash_dropout(y, _draw(seeds, rate), rate)
+        return self.output_ln(x + y)
 
 
 class TextEncoder(nn.Module):
@@ -212,20 +271,22 @@ class TextEncoder(nn.Module):
 
     def forward(self, input_ids, attention_mask, deterministic: bool = True, seeds=None):
         cfg = self.config
-        b, t = input_ids.shape
+        t = input_ids.shape[1]
         ids = input_ids.long()
+        # Every lookup's gradient sums an id's rows in a fixed order (the
+        # library's embedding backward does not on the card): the positions
+        # of a BERT window are the table's first t rows, and the token type
+        # is always 0, so those two are broadcast slices of their tables.
         if cfg.flavor == "roberta":
             # HF create_position_ids_from_input_ids: pads keep padding_idx,
             # other positions count from padding_idx + 1.
             not_pad = (ids != cfg.pad_token_id).long()
             position_ids = torch.cumsum(not_pad, dim=1) * not_pad + cfg.pad_token_id
+            pos = embedding_lookup(self.position_embeddings.weight, position_ids)
         else:
-            position_ids = torch.arange(t, device=ids.device).expand(b, t)
-        hidden = (
-            self.word_embeddings(ids)
-            + self.position_embeddings(position_ids)
-            + self.token_type_embeddings(torch.zeros_like(ids))
-        )
+            pos = self.position_embeddings.weight[:t]
+        hidden = (embedding_lookup(self.word_embeddings.weight, ids) + pos
+                  + self.token_type_embeddings.weight[0])
         hidden = self.embeddings_ln(hidden)
         rate = 0.0 if deterministic else cfg.hidden_dropout
         hidden = hash_dropout(hidden, _draw(seeds, rate), rate)
@@ -274,4 +335,8 @@ def load_hf_weights(encoder: TextEncoder, state_dict) -> None:
             for leaf in ("weight", "bias"):
                 names[f"encoder.layer.{i}.{theirs}.{leaf}"] = f"layer.{i}.{ours}.{leaf}"
     for theirs, ours in names.items():
-        assign(encoder.get_parameter(ours), get(theirs), theirs)
+        value = torch.as_tensor(get(theirs))
+        # a tensor-parallel encoder takes its slice of each split weight
+        value = local_part(value, split_axis("bert_model." + ours, value.ndim),
+                           encoder.config.mesh)
+        assign(encoder.get_parameter(ours), value, theirs)

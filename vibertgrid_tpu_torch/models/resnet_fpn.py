@@ -32,7 +32,15 @@ BACKBONE_REGISTRY = {
 
 
 def _up(x, scale: int):
-    return x if scale == 1 else F.interpolate(x, scale_factor=scale, mode="nearest")
+    """Nearest upsampling by an integer ``scale`` of a ``channels_last``
+    NCHW map, as a broadcast of its NHWC view (the JAX package's ``repeat``;
+    the result keeps the layout): its gradient is a reduction over each
+    pixel's copies, in an order fixed by the shapes."""
+    if scale == 1:
+        return x
+    n, c, h, w = x.shape
+    nhwc = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(n, h, scale, w, scale, c)
+    return nhwc.reshape(n, h * scale, w * scale, c).permute(0, 3, 1, 2)
 
 
 class ResBlock(nn.Module):

@@ -42,6 +42,7 @@ from vibertgrid_tpu_torch.ops.roi_align import roi_align
 from vibertgrid_tpu_torch.ops.segments import aggregate_token_embeddings
 from vibertgrid_tpu_torch.ops.windows import frame_windows, unframe_windows
 from vibertgrid_tpu_torch.parallel.collectives import all_max
+from vibertgrid_tpu_torch.parallel.sharding import apply_shardings
 
 
 @dataclasses.dataclass
@@ -118,6 +119,9 @@ class ModelConfig:
     compute_dtype: torch.dtype = torch.float32
     attention_impl: str = "auto"
     ffn_impl: str = "auto"
+    # a parallel.mesh.Layout, threaded into the encoder as the JAX package's
+    # ModelConfig.mesh is: with a model axis above 1 the encoder is
+    # tensor-parallel, everything else replicated
     mesh: Any = None
     text_config: TextEncoderConfig | None = None  # override (tests)
 
@@ -228,6 +232,7 @@ class ViBERTgridNet(nn.Module):
         if mode == "crf":
             self.field_type_head = CRFFieldTypeClassification(
                 1024, config.num_tokens, layer_mode=config.layer_mode, dtype=dt, **kw)
+            self._split(text_cfg)
             return
         ohem = dict(
             num_hard_positive_1=config.num_hard_positive_main_1,
@@ -244,6 +249,19 @@ class ViBERTgridNet(nn.Module):
             self.field_type_head = FieldTypeClassification(
                 1024, config.num_tokens, layer_mode=config.layer_mode,
                 decision=config.full_head_decision, dtype=dt, **ohem, **kw)
+        self._split(text_cfg)
+
+    def _split(self, text_cfg: TextEncoderConfig) -> None:
+        """Under tensor parallelism keep this rank's slices of the encoder's
+        split weights: every rank draws the whole model from the same
+        generator, so the slices are those of the one-process model."""
+        layout = self.config.mesh
+        if layout is None or layout.model == 1:
+            return
+        if text_cfg.num_heads % layout.model or text_cfg.intermediate_size % layout.model:
+            raise ValueError(f"{text_cfg.num_heads} heads and {text_cfg.intermediate_size} FFN "
+                             f"features do not split over mesh_model={layout.model}")
+        apply_shardings(self, layout)
 
     def forward(self, batch: Batch, *, train: bool = False, compute_loss: bool = False,
                 seeds=None) -> ModelOutput:

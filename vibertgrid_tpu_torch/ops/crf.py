@@ -14,6 +14,7 @@ START and the column from STOP are pinned to −1e4 at initialisation.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from vibertgrid_tpu_torch.parallel.collectives import active, all_sum
 
@@ -58,10 +59,15 @@ def _gold_score(transitions, feats, tags, lengths):
     b, _, k = feats.shape
     tags = tags.long()
     prev = torch.cat([tags.new_full((b, 1), k - 2), tags[:, :-1]], dim=1)
-    steps = transitions[tags, prev] + torch.gather(feats.float(), 2, tags[..., None])[..., 0]
+    # transitions[tags, prev] as products with one-hot rows: the gradient of
+    # an indexed read adds repeated pairs with atomics on the card, in an
+    # order that changes between runs; a product's does not
+    to_tag = F.one_hot(tags, k).float()
+    pair = (to_tag @ transitions * F.one_hot(prev, k).float()).sum(dim=2)
+    steps = pair + torch.gather(feats.float(), 2, tags[..., None])[..., 0]
     score = torch.where(_active(feats, lengths), steps, 0.0).sum(dim=1)
     last = torch.gather(tags, 1, (lengths.long() - 1).clamp(min=0)[:, None])[:, 0]
-    return score + transitions[-1][last]
+    return score + (F.one_hot(last, k).float() * transitions[-1]).sum(dim=1)
 
 
 def crf_nll_batch(transitions, feats, tags, lengths) -> torch.Tensor:

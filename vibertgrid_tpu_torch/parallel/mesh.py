@@ -17,8 +17,14 @@ port makes each of them explicit:
   ``eval/harness.py::validate`` gathers the metric objects with
   :func:`process_allgather_objects`.
 
-Tensor parallelism (a ``model`` axis above 1) is not ported
-(``parallel/sharding.py::param_shardings``).
+:func:`make_mesh` lays the processes out on a ``(data, model)`` mesh as the
+JAX package's ``devices.reshape(data, model)`` does: rank ``d·model + m``
+is data shard ``d`` and model shard ``m``. The ranks of one model group
+(one ``d``) hold the same documents and split the encoder's weights
+(tensor parallelism, ``parallel/sharding.py``); the ranks of one data group
+(one ``m``) hold the same slices of the weights and split the batch. The
+:class:`Layout` it returns, with the two process groups, is what the rest
+of the port reads instead of the rank and the world size.
 """
 
 from __future__ import annotations
@@ -27,12 +33,10 @@ import builtins
 import dataclasses
 import datetime
 import os
+from typing import Any
 
 import torch
 import torch.distributed as dist
-
-ROADMAP_TP = ("tensor parallelism (mesh_model > 1) is not ported yet: ROADMAP.md, "
-              "Queue 1, item H")
 
 
 def get_rank() -> int:
@@ -98,31 +102,84 @@ def setup_rank0_print() -> None:
     builtins.print = quiet_print
 
 
-def make_mesh(data: int | None = None, model: int = 1) -> tuple[int, int]:
-    """Check a ``(data, model)`` layout against the processes and return it.
-    One process is one data shard, so ``data`` (``None``: the world size)
-    must equal the world size; more raises, as the JAX package's
-    ``make_mesh`` asserts. ``model > 1`` raises ``NotImplementedError``."""
-    world = get_world_size()
-    if (model or 1) > 1:
-        raise NotImplementedError(ROADMAP_TP)
-    data = world if data is None else int(data)
-    if data > world:
-        raise ValueError(f"mesh_data={data} needs {data} processes, the world has {world}")
-    if data != world:
-        raise ValueError(f"mesh_data={data} with {world} processes: each process is one "
-                         "data shard")
-    return data, 1
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """This process's place on a ``(data, model)`` mesh of processes:
+    ``rank = data_index·model + model_index``. ``data_group`` holds the
+    ``data`` ranks of this model shard (None when ``data`` is 1),
+    ``model_group`` the ``model`` ranks of this data shard (None when
+    ``model`` is 1). One process is ``Layout()``."""
+
+    data: int = 1
+    model: int = 1
+    data_index: int = 0
+    model_index: int = 0
+    data_group: Any = None
+    model_group: Any = None
+
+    @property
+    def rank(self) -> int:
+        return self.data_index * self.model + self.model_index
 
 
-def process_allgather_objects(obj) -> list:
-    """Every process's ``obj``, in rank order (``all_gather_object``); the
-    identity in one process, where no collective is issued."""
+_LAYOUT: tuple | None = None  # (the world group it was made in, the layout)
+
+
+def make_mesh(data: int | None = None, model: int = 1) -> Layout:
+    """Lay the processes out on a ``(data, model)`` mesh and return this
+    process's :class:`Layout`. ``data`` (``None``: ``world // model``) times
+    ``model`` must be the world size, as the JAX package's ``make_mesh``
+    asserts. Every rank calls it with the same arguments: it creates the
+    data groups and the model groups, every rank every group in one order.
+    The layout is kept, and :func:`current_layout` returns it."""
+    global _LAYOUT
     world = get_world_size()
+    model = int(model or 1)
+    if model < 1 or world % model:
+        raise ValueError(f"mesh_model={model} does not divide the {world} processes")
+    data = world // model if data is None else int(data)
+    if data * model != world:
+        raise ValueError(f"mesh_data={data} x mesh_model={model} needs {data * model} "
+                         f"processes, the world has {world}")
+    if _LAYOUT is not None and _LAYOUT[0] is _world_group() and (
+            _LAYOUT[1].data, _LAYOUT[1].model) == (data, model):
+        return _LAYOUT[1]
+    d, m = divmod(get_rank(), model)
+    data_group = model_group = None
+    if data > 1 and model > 1:
+        model_groups = [dist.new_group([i * model + j for j in range(model)]) for i in range(data)]
+        data_groups = [dist.new_group([i * model + j for i in range(data)]) for j in range(model)]
+        data_group, model_group = data_groups[m], model_groups[d]
+    elif data > 1:
+        data_group = dist.group.WORLD
+    elif model > 1:
+        model_group = dist.group.WORLD
+    layout = Layout(data, model, d, m, data_group, model_group)
+    _LAYOUT = (_world_group(), layout)
+    return layout
+
+
+def _world_group():
+    return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+
+
+def current_layout() -> Layout:
+    """The layout :func:`make_mesh` made in this process group, else data
+    parallelism over every process (``make_mesh()``)."""
+    if _LAYOUT is not None and _LAYOUT[0] is _world_group():
+        return _LAYOUT[1]
+    return make_mesh()
+
+
+def process_allgather_objects(obj, group=None) -> list:
+    """Every process's ``obj`` (of ``group``, by default every process), in
+    rank order (``all_gather_object``); the identity in one process, where
+    no collective is issued."""
+    world = get_world_size() if group is None else dist.get_world_size(group)
     if world == 1:
         return [obj]
     out = [None] * world
-    dist.all_gather_object(out, obj)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
@@ -152,10 +209,13 @@ def shard_batch(batch, rank: int, world: int):
 
 
 @torch.no_grad()
-def replicate(module: torch.nn.Module, src: int = 0) -> torch.nn.Module:
-    """Broadcast rank ``src``'s parameters and buffers to every rank, in
-    place; a no-op in one process."""
-    if get_world_size() > 1:
+def replicate(module: torch.nn.Module, layout: Layout | None = None) -> torch.nn.Module:
+    """Broadcast the parameters and buffers of the first rank of this
+    process's data group to the group, in place (``layout``: the current
+    one); a no-op where the data group is one process. Under tensor
+    parallelism each model shard's slices come from its own first rank."""
+    layout = layout or current_layout()
+    if layout.data > 1:
         for t in [*module.parameters(), *module.buffers()]:
-            dist.broadcast(t.data, src)
+            dist.broadcast(t.data, layout.model_index, group=layout.data_group)
     return module

@@ -14,10 +14,13 @@ train step updates it in place; the state's model and optimizer fix the
 shapes, dtypes and device.
 
 With more than one process every rank calls the save: a ZeRO-1 optimizer
-gathers its state slices first, so that a checkpoint holds the whole state
-and resumes under any number of processes; then rank 0 alone writes and the
-others wait for it at a barrier (the ranks share one file system, where the
-JAX package's per-host save writes from every host).
+gathers its state slices over the data group first, then under tensor
+parallelism the model group gathers the slices of the split parameters and
+of their state, so that a checkpoint holds whole tensors and resumes under
+any layout of processes (one process included); then rank 0 alone writes
+and the others wait for it at a barrier (the ranks share one file system,
+where the JAX package's per-host save writes from every host). A restore
+cuts each split tensor to the restoring rank's slice.
 """
 
 from __future__ import annotations
@@ -30,21 +33,42 @@ import torch
 import torch.distributed as dist
 
 from vibertgrid_tpu_torch.parallel.mesh import get_world_size, is_main_process
+from vibertgrid_tpu_torch.parallel.sharding import (
+    gather_whole,
+    local_part,
+    local_state,
+    param_shardings,
+    split_axis,
+)
 from vibertgrid_tpu_torch.train.state import TrainState
 
 _STATE_FILE = "state.pt"
 _META_FILE = "meta.json"
 
 
+def _layout(model: torch.nn.Module):
+    return getattr(getattr(model, "config", None), "mesh", None)
+
+
 def _payload(state: TrainState) -> dict:
-    named = dict(state.model.named_parameters())
+    model = state.model
+    layout = _layout(model)
+    named = dict(model.named_parameters())
+    split = param_shardings(model, layout)
+    axes = {n: split[p] for n, p in named.items()}
     optimizer = state.optimizer
     slots = optimizer.gathered_state()  # whole tensors, also under ZeRO-1
+    by_name = {name: slots[p] for name, p in named.items() if p in slots}
+    for slot in sorted({k for st in by_name.values() for k in st}):
+        whole = gather_whole({n: st[slot] for n, st in by_name.items() if slot in st}, axes,
+                             layout)
+        for n, t in whole.items():
+            by_name[n][slot] = t
     return {
-        "model": state.model.state_dict(),
+        "model": gather_whole(model.state_dict(), axes, layout),
         "optimizer": {
             "count": optimizer.count,
-            "slots": {name: slots[p] for name, p in named.items() if p in slots},
+            "slots": by_name,
             "schedules": {k: torch.from_numpy(np.asarray(v, dtype=np.float64))
                           for k, v in optimizer.schedules.items()},
         },
@@ -111,7 +135,7 @@ def _read(path: str, model: torch.nn.Module) -> tuple[dict, dict]:
     device = next(model.parameters()).device
     payload = torch.load(os.path.join(path, _STATE_FILE), map_location=device,
                          weights_only=True)
-    model.load_state_dict(payload["model"], strict=True)
+    model.load_state_dict(local_state(payload["model"], _layout(model)), strict=True)
     return payload, meta
 
 
@@ -128,8 +152,10 @@ def restore_checkpoint(path: str, state: TrainState) -> tuple[TrainState, dict]:
     checkpoint path and no checkpoint root."""
     payload, meta = _read(path, state.model)
     saved = payload["optimizer"]
-    state.optimizer.load_named_state(state.model.named_parameters(), saved["slots"],
-                                     saved["count"])
+    layout = _layout(state.model)
+    slots = {name: {k: local_part(v, split_axis(name, v.ndim), layout) for k, v in st.items()}
+             for name, st in saved["slots"].items()}
+    state.optimizer.load_named_state(state.model.named_parameters(), slots, saved["count"])
     state.optimizer.schedules = {k: v.cpu().numpy() for k, v in saved["schedules"].items()}
     state.step = payload["step"]
     return state, meta

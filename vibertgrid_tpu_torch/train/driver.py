@@ -18,14 +18,16 @@ validate, then the epoch loop (train an epoch, validate, keep checkpoints by
 F1). It trains on the card unless the caller asks for the CPU.
 
 Under torchrun (``WORLD_SIZE`` and the rendezvous in the environment) it
-trains data-parallel, one process per card (``LOCAL_RANK`` modulo the
-cards; NCCL on the card, gloo when the caller asks for the CPU): each
-process loads its share ``[rank::world]`` of every epoch and of the test
-split, ``batch_size`` documents a step (the global batch is ``batch_size ·
-world``), the train step computes the global batch's loss and gradients
-(``parallel/``), ``zero1: true`` splits the optimizer state over the
-processes, and validate gathers the metrics from every process. ``mesh_model > 1`` (tensor parallelism) raises
-``NotImplementedError``.
+trains on a ``(data, model)`` mesh of processes, one process per card
+(``LOCAL_RANK`` modulo the cards; NCCL on the card, gloo when the caller
+asks for the CPU): ``mesh_model`` processes (default 1) split the encoder's
+weights (tensor parallelism) and share one data shard, and the ``mesh_data
+= world / mesh_model`` data shards each load their share ``[d::data]`` of
+every epoch and of the test split, ``batch_size`` documents a step (the
+global batch is ``batch_size · data``). The train step computes the global
+batch's loss and gradients (``parallel/``), ``zero1: true`` splits the
+optimizer state over the data group, and validate gathers the metrics from
+every data shard.
 """
 
 from __future__ import annotations
@@ -55,7 +57,6 @@ from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.eval.harness import validate
 from vibertgrid_tpu_torch.models.vibertgrid import ModelConfig, ViBERTgridNet
 from vibertgrid_tpu_torch.parallel.mesh import (
-    get_rank,
     get_world_size,
     init_distributed_mode,
     is_main_process,
@@ -96,11 +97,13 @@ def build_tokenizer(hyp: dict):
 
 
 def build_all(hyp: dict, dataset: str, tokenizer=None, spec=None, *, device="cuda",
-              seed: int = 0):
+              seed: int = 0, layout=None):
     """``(spec, cfg, model, transform, collator, tag_to_idx)`` from a YAML
     dict: the model built on ``device`` with weights drawn from a generator
     seeded with ``seed`` (in eval mode), the [CLS] / [SEP] ids taken from the
-    tokenizer. Besides the reference's keys it reads ``attn_epilogue``
+    tokenizer; with a ``layout`` (``parallel.mesh.make_mesh``) of more than
+    one model shard the encoder is tensor-parallel and holds this rank's
+    slices. Besides the reference's keys it reads ``attn_epilogue``
     (``"auto"``, or ``"fused"`` for the encoder's fused attention epilogue)."""
     spec = spec or get_spec(dataset)
     tag_mode = hyp.get("tag_mode", "B")
@@ -115,6 +118,8 @@ def build_all(hyp: dict, dataset: str, tokenizer=None, spec=None, *, device="cud
         # projection, dropout, residual and LayerNorm
         cfg = dataclasses.replace(cfg, text_config=dataclasses.replace(
             cfg.resolved_text_config(), attn_epilogue=hyp["attn_epilogue"]))
+    if layout is not None and layout.model > 1:
+        cfg = dataclasses.replace(cfg, mesh=layout)
     if tokenizer is not None:
         # RoBERTa's <s> id is 0 (falsy): explicit None checks only
         cls_id, sep_id = tokenizer.cls_token_id, tokenizer.sep_token_id
@@ -224,20 +229,20 @@ def train(hyp: dict, dataset: str, spec=None, max_steps: int | None = None, *,
     # distributed_utils.py:73-100, 57-70); no-ops in one process
     init_distributed_mode(device=resolve_device(device))
     setup_rank0_print()
-    make_mesh(hyp.get("mesh_data"), hyp.get("mesh_model") or 1)
+    layout = make_mesh(hyp.get("mesh_data"), hyp.get("mesh_model") or 1)
     dev = process_device(device)
     comment = hyp.get("comment", dataset)
     with _tee_stdout(hyp, comment):
-        return _train(hyp, dataset, spec, max_steps, dev, comment)
+        return _train(hyp, dataset, spec, max_steps, dev, comment, layout)
 
 
-def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
+def _train(hyp, dataset, spec, max_steps, dev, comment, layout) -> dict:
     setup_seed(42)
     tokenizer = build_tokenizer(hyp)
     batch_size = hyp.get("batch_size", 2)
     num_workers = hyp.get("num_workers", 0)
     spec, cfg, model, transform, collator, tag_to_idx = build_all(
-        hyp, dataset, tokenizer, spec, device=dev, seed=42)
+        hyp, dataset, tokenizer, spec, device=dev, seed=42, layout=layout)
     data_root = hyp["data_root"]
     start_epoch = hyp.get("start_epoch", 0)
     end_epoch = hyp.get("end_epoch", 1)
@@ -255,17 +260,17 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         transform.image_mean = m.tolist()
         transform.image_std = s.tolist()
 
-    # each process takes its share of an epoch, batch_size documents a step:
-    # the schedules count its steps (DistributedSampler's length)
-    rank, world = get_rank(), get_world_size()
-    niter_per_ep = max(len(train_ds) // world // batch_size, 1)
+    # each data shard takes its share of an epoch, batch_size documents a
+    # step: the schedules count its steps (DistributedSampler's length)
+    shard = (layout.data_index, layout.data)
+    niter_per_ep = max(len(train_ds) // layout.data // batch_size, 1)
     optimizer, schedules = make_optimizer(hyp, end_epoch, niter_per_ep, model.named_parameters(),
                                           return_schedules=True)
     state = create_train_state(model, optimizer)
     # pretrained weights from local files only (no hub)
     if hyp.get("bert_weights") or hyp.get("backbone_weights") or hyp.get("reference_weights"):
         load_pretrained_into_state(state, hyp)
-    replicate(state.model)  # every process starts from rank 0's weights
+    replicate(state.model, layout)  # every data shard starts from the first one's weights
 
     ckpt = CheckpointManager(hyp.get("save_top", "./weights/"), hyp.get("top_F1_tresh", 0.0))
     if hyp.get("weights"):
@@ -274,8 +279,8 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         print(f"==> resumed from {hyp['weights']} at epoch {start_epoch}")
     if hyp.get("zero1", False):
         # ZeRO-1: each process keeps and updates its slices of the large
-        # optimizer-state leaves (a no-op in one process)
-        shard_optimizer_state(state.optimizer, rank, world)
+        # optimizer-state leaves, over the data group (a no-op on one)
+        shard_optimizer_state(state.optimizer, *shard, group=layout.data_group)
 
     train_step = make_train_step()
     # eval_uint8_upload: validation on the serving engine's uint8 wire (4x
@@ -294,7 +299,7 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         t0 = time.perf_counter()
         loader = bucketed_eval_loader(test_ds, eval_collator,
                                       batch_size=hyp.get("eval_batch_size", 8),
-                                      shard=(rank, world), num_workers=num_workers)
+                                      shard=shard, num_workers=num_workers)
         with contextlib.closing(prefetch_to_device(loader, dev)) as batches:
             res = validate(eval_step, state, batches, spec, eval_mode=eval_mode,
                            tag_to_idx=tag_to_idx,
@@ -344,7 +349,7 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         waited = 0.0
         epoch_losses = []
         loader = data_loader(train_ds, collator, batch_size, train=True, seed=epoch,
-                             shard=(rank, world), num_workers=num_workers)
+                             shard=shard, num_workers=num_workers)
         # a background thread reads and collates the next batches and copies
         # them to the device while the device runs this step
         with contextlib.closing(prefetch_to_device(loader, dev)) as batches:
@@ -367,9 +372,9 @@ def _train(hyp, dataset, spec, max_steps, dev, comment) -> dict:
         step_losses = torch.stack(epoch_losses).cpu().tolist() if epoch_losses else []
         wall = time.perf_counter() - t_ep
         mean_loss = float(np.mean(step_losses)) if step_losses else float("nan")
-        # docs: the global batch's, every process's together
+        # docs: the global batch's, every data shard's together
         timings["train"].append(dict(epoch=epoch, steps=it_in_epoch,
-                                     docs=it_in_epoch * batch_size * world,
+                                     docs=it_in_epoch * batch_size * layout.data,
                                      losses=step_losses, wall_s=wall, loader_wait_s=waited))
         print(f"\tepoch[{epoch + 1}] train_loss: {mean_loss:.4f} time: {wall:.0f}s "
               f"({it_in_epoch} steps, {waited:.1f}s waiting on the loader)")

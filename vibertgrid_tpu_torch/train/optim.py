@@ -15,7 +15,9 @@ over each group's tensor lists.
 Under ZeRO-1 (:func:`vibertgrid_tpu_torch.parallel.sharding.shard_optimizer_state`)
 each rank keeps the state of its slices of the large parameters only,
 updates those slices (from gradients of which only those slices are
-reduced), and the ranks then all-gather the updated slices.
+reduced), and the ranks of the data group then all-gather the updated
+slices. Under tensor parallelism the parameters are this rank's slices
+already, and so are their states.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class DualOptimizer(torch.optim.Optimizer):
         self.state_dtype = state_dtype
         self.count = 0  # updates applied so far: the schedules' index
         self.shards: dict = {}  # ZeRO-1: {param: (axis, start, length)} this rank owns
+        self.group = None  # ZeRO-1: the data group the slices are exchanged over
         for group in self.param_groups:
             for p in group["params"]:
                 zeros = lambda: torch.zeros_like(p, dtype=state_dtype or p.dtype)
@@ -117,13 +120,16 @@ class DualOptimizer(torch.optim.Optimizer):
         ax, start, length = self.shards[p]
         return t.narrow(ax, start, length)
 
-    def set_shards(self, shards: dict) -> None:
+    def set_shards(self, shards: dict, group=None) -> None:
         """ZeRO-1: keep only the slices ``{param: (axis, start, length)}`` of
-        the named parameters' state, and update only those slices."""
+        the named parameters' state, and update only those slices; the
+        updated slices are exchanged over ``group`` (the data group; by
+        default every process)."""
         for p, (ax, start, length) in shards.items():
             self.state[p] = {k: v.narrow(ax, start, length).clone()
                              for k, v in self.state[p].items()}
         self.shards = dict(shards)
+        self.group = group
 
     def gathered_state(self) -> dict:
         """``{param: {slot: whole tensor}}``: the state as one process holds
@@ -134,7 +140,8 @@ class DualOptimizer(torch.optim.Optimizer):
             slots = {slot for p in self.shards for slot in self.state[p]}
             for slot in sorted(slots):
                 whole = all_gather_slices({p: self.state[p][slot] for p in self.shards
-                                           if slot in self.state[p]}, self.shards)
+                                           if slot in self.state[p]}, self.shards,
+                                          group=self.group)
                 for p, t in whole.items():
                     out[p][slot] = t
         return out
@@ -155,10 +162,11 @@ class DualOptimizer(torch.optim.Optimizer):
             (self._sgd if kind == "cnn" else self._adamw)(owners, params, grads, lr, wd)
         if self.shards:  # every rank takes the others' updated slices
             all_gather_slices({p: self._owned(p, p) for p in self.shards}, self.shards,
-                              out={p: p for p in self.shards})
+                              out={p: p for p in self.shards}, group=self.group)
         self.count += 1
 
-    _OWN = ("schedules", "momentum", "beta1", "beta2", "eps", "state_dtype", "count", "shards")
+    _OWN = ("schedules", "momentum", "beta1", "beta2", "eps", "state_dtype", "count", "shards",
+            "group")
 
     def __getstate__(self):  # the base class keeps only its own fields
         state = super().__getstate__()

@@ -13,10 +13,14 @@ When a process group exists, the train step is the data-parallel one: the
 forward and backward run inside
 :func:`~vibertgrid_tpu_torch.parallel.collectives.global_batch`, so the loss
 is the global batch's (the same value on every rank), and the gradients are
-averaged over the ranks before the clip reads them (under ZeRO-1 those of
-the split parameters are reduce-scattered: each rank receives the mean of
+averaged over the data group before the clip reads them (under ZeRO-1 those
+of the split parameters are reduce-scattered: each rank receives the mean of
 the slices it updates); every rank then takes the same clip decision and
-the same update.
+the same update. Under tensor parallelism (the model's layout has a model
+axis above 1) the encoder's split parameters hold this rank's slices and
+their gradients are this rank's slices of the whole gradients; the
+replicated parameters' gradients are the same on every rank of a model
+group, which computes them from the same values.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch.distributed as dist
 
 from vibertgrid_tpu_torch.models.vibertgrid import Batch, ViBERTgridNet
 from vibertgrid_tpu_torch.parallel.collectives import average_gradients, global_batch
-from vibertgrid_tpu_torch.parallel.sharding import reduce_scatter_mean
+from vibertgrid_tpu_torch.parallel.mesh import Layout, current_layout
+from vibertgrid_tpu_torch.parallel.sharding import param_shardings, reduce_scatter_mean
 from vibertgrid_tpu_torch.train.optim import DualOptimizer
 
 
@@ -43,19 +48,42 @@ def create_train_state(model: ViBERTgridNet, optimizer: DualOptimizer) -> TrainS
     return TrainState(model=model, optimizer=optimizer, step=0)
 
 
+def _squares(grads) -> torch.Tensor | None:
+    grads = list(grads)
+    if not grads:
+        return None
+    return torch.stack(torch._foreach_norm(grads, dtype=torch.float64)).square().sum()
+
+
 def clip_scale(loss: torch.Tensor, grads, loss_clip_tresh: float, clip_norm: float,
-               owned=()):
+               owned=(), *, split=(), split_owned=(), layout: Layout | None = None):
     """The factor of the conditional clip, on the device: ``clip_norm /
     gnorm`` when the loss spiked above ``loss_clip_tresh`` **and** the global
-    gradient norm exceeds ``clip_norm``, else 1. ``owned``: under ZeRO-1,
-    this rank's slices of the split parameters' gradients, whose squares
-    the ranks sum into the norm (one all-reduce of a scalar). The norm is
-    accumulated in float64, so that it does not depend on how the
-    gradients are split (in float32 the host's sums differ by ~1e-4)."""
-    sq = torch.stack(torch._foreach_norm(grads, dtype=torch.float64)).square().sum()
+    gradient norm exceeds ``clip_norm``, else 1. ``grads``: the whole
+    gradients, the same on every rank. ``owned``: under ZeRO-1, this rank's
+    slices of the split parameters' gradients, whose squares the data group
+    sums into the norm (one all-reduce of a scalar). Under tensor
+    parallelism, ``split`` holds this rank's slices of the encoder's split
+    gradients and ``split_owned`` their ZeRO-1 slices: the model group sums
+    their squares, so that each whole gradient counts once and each
+    replicated one once. The norm is accumulated in float64, so that it does
+    not depend on how the gradients are split (in float32 the host's sums
+    differ by ~1e-4)."""
+    layout = layout or Layout()
+    sq = _squares(grads)
+    if sq is None:
+        sq = torch.zeros((), dtype=torch.float64, device=loss.device)
     if owned:
-        part = torch.stack(torch._foreach_norm(list(owned), dtype=torch.float64)).square().sum()
-        dist.all_reduce(part)
+        part = _squares(owned)
+        dist.all_reduce(part, group=layout.data_group)
+        sq = sq + part
+    if split or split_owned:
+        part = _squares(split)
+        if split_owned:  # the ZeRO-1 slices over the data group, then all over the model group
+            slices = _squares(split_owned)
+            dist.all_reduce(slices, group=layout.data_group)
+            part = slices if part is None else part + slices
+        dist.all_reduce(part, group=layout.model_group)
         sq = sq + part
     gnorm = sq.sqrt().float()
     clip = (loss.detach() > loss_clip_tresh) & (gnorm > clip_norm)
@@ -63,19 +91,36 @@ def clip_scale(loss: torch.Tensor, grads, loss_clip_tresh: float, clip_norm: flo
 
 
 def apply_gradients(optimizer: DualOptimizer, loss: torch.Tensor, parallel: bool,
-                    loss_clip_tresh: float, clip_norm: float) -> None:
+                    loss_clip_tresh: float, clip_norm: float,
+                    layout: Layout | None = None, split=frozenset()) -> None:
     """The train step after its backward: with ``parallel``, the gradients
-    averaged over the ranks (under ZeRO-1 those of the split parameters
-    reduce-scattered), then the clip and both updates."""
+    averaged over the data group of ``layout`` (by default the current one;
+    under ZeRO-1 those of the split parameters reduce-scattered), then the
+    clip and both updates. ``split``: the parameters that tensor parallelism
+    splits (:func:`~vibertgrid_tpu_torch.parallel.sharding.param_shardings`)."""
+    layout = layout or (current_layout() if parallel else Layout())
     grads = {p: p.grad for g in optimizer.param_groups for p in g["params"]
              if p.grad is not None}
     whole = [g for p, g in grads.items() if p not in optimizer.shards]
     owned = []
-    if parallel:
-        average_gradients(whole)
+    if parallel and layout.data > 1:
+        average_gradients(whole, layout.data_group)
         owned = reduce_scatter_mean({p: g for p, g in grads.items()
-                                     if p in optimizer.shards}, optimizer.shards)
-    optimizer.step(grad_scale=clip_scale(loss, whole, loss_clip_tresh, clip_norm, owned))
+                                     if p in optimizer.shards}, optimizer.shards,
+                                    layout.data_group)
+    if split:
+        # whole gradients and ZeRO-1 slices, each apart for the split parameters
+        zero = [p for p in grads if p in optimizer.shards]
+        scale = clip_scale(
+            loss, [g for p, g in grads.items() if p not in optimizer.shards and p not in split],
+            loss_clip_tresh, clip_norm,
+            [optimizer._owned(grads[p], p) for p in zero if p not in split] if owned else (),
+            split=[g for p, g in grads.items() if p not in optimizer.shards and p in split],
+            split_owned=[optimizer._owned(grads[p], p) for p in zero if p in split] if owned
+            else (), layout=layout)
+    else:
+        scale = clip_scale(loss, whole, loss_clip_tresh, clip_norm, owned, layout=layout)
+    optimizer.step(grad_scale=scale)
 
 
 def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
@@ -83,18 +128,23 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
     ``state`` in place. ``seeds``: the step's seed stream (``next() -> int``)
     for the dropout sites and the sampled losses. Clipping reproduces the
     reference's "clip when the loss spikes" rule. With a process group (made
-    before this is called) the step is data-parallel over its ranks, each
-    rank passing its share of the global batch and the same seeds."""
+    before this is called) the step is data-parallel over its data group,
+    each data rank passing its share of the global batch and every rank the
+    same seeds; the layout is the model's (``ModelConfig.mesh``) where it has
+    one, else :func:`~vibertgrid_tpu_torch.parallel.mesh.current_layout`."""
     parallel = dist.is_available() and dist.is_initialized()
 
     def train_step(state: TrainState, batch: Batch, seeds):
         model, optimizer = state.model, state.optimizer
+        layout = model.config.mesh or (current_layout() if parallel else None)
+        split = frozenset(p for p, ax in param_shardings(model, layout).items()
+                          if ax is not None)
         optimizer.zero_grad(set_to_none=True)
-        with global_batch(parallel):
+        with global_batch(parallel, layout):
             out = model(batch, train=True, compute_loss=True, seeds=seeds)
             loss = out.total_loss
             loss.backward()
-        apply_gradients(optimizer, loss, parallel, loss_clip_tresh, clip_norm)
+        apply_gradients(optimizer, loss, parallel, loss_clip_tresh, clip_norm, layout, split)
         state.step += 1
         return state, loss.detach()
 

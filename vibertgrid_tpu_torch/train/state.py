@@ -25,6 +25,7 @@ group, which computes them from the same values.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -123,6 +124,20 @@ def apply_gradients(optimizer: DualOptimizer, loss: torch.Tensor, parallel: bool
     optimizer.step(grad_scale=scale)
 
 
+def _replicas_agree(layout: Layout | None):
+    """Under tensor parallelism every rank of a model group computes the
+    replicated layers (the CNN, the heads, the losses) itself, and their
+    parameters must stay bit-equal: the step runs cuDNN's deterministic
+    convolution algorithms (a flag, scoped to the step: no formulation
+    chooses cuDNN's algorithm). Otherwise fp32 backwards may add with
+    atomics, whose order two ranks sharing a card see differently."""
+    if layout is None or layout.model == 1:
+        return contextlib.nullcontext()
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark, benchmark_limit=c.benchmark_limit,
+                   deterministic=True, allow_tf32=c.allow_tf32)
+
+
 def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
     """``train_step(state, batch, seeds) -> (state, loss)``: one update of
     ``state`` in place. ``seeds``: the step's seed stream (``next() -> int``)
@@ -140,7 +155,7 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
         split = frozenset(p for p, ax in param_shardings(model, layout).items()
                           if ax is not None)
         optimizer.zero_grad(set_to_none=True)
-        with global_batch(parallel, layout):
+        with global_batch(parallel, layout), _replicas_agree(layout):
             out = model(batch, train=True, compute_loss=True, seeds=seeds)
             loss = out.total_loss
             loss.backward()

@@ -875,8 +875,10 @@ def _timed_forward(model, batch, what, iters: int = 10) -> float:
         issued = (time.perf_counter() - t0) / iters
         torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / iters
-    print(f"{what} bf16 B={B} {H}x{W} T={T} S={S}: {dt * 1e3:.2f} ms/batch, "
-          f"{B / dt:.1f} docs/s (the host issued a batch in {issued * 1e3:.2f} ms), peak memory "
+    b, h, w, _ = batch.images.shape
+    print(f"{what} bf16 B={b} {h}x{w} T={batch.tokens.shape[1]} S={batch.boxes.shape[1]}: "
+          f"{dt * 1e3:.2f} ms/batch, {b / dt:.1f} docs/s (the host issued a batch in "
+          f"{issued * 1e3:.2f} ms), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dt
 
@@ -1100,7 +1102,7 @@ def two_window_forward(dev) -> float:
 
     model = ViBERTgridNet(FLAGSHIP, device=dev).eval()
     batch = make_batch(B, H, W, 2 * T, S, VOCAB, seed=0, device=dev)
-    dt = _timed_forward(model, batch, "flagship forward, two windows (T=1020)")
+    dt = _timed_forward(model, batch, "flagship forward, two windows")
     del model, batch
     torch.cuda.empty_cache()
     return B / dt
@@ -2198,10 +2200,10 @@ def _rank_bf16(dev, tmp, rank, world):
     reduce_ms = []  # each step's gradient exchange, host clock
 
     def timed(fn):
-        def run(*args):
+        def run(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = fn(*args)
+            res = fn(*args, **kwargs)
             torch.cuda.synchronize()
             reduce_ms[-1] += 1e3 * (time.perf_counter() - t0)
             return res
@@ -2212,8 +2214,8 @@ def _rank_bf16(dev, tmp, rank, world):
         setattr(state_module, name, timed(fn))
     clip_scale, scales = state_module.clip_scale, []  # each step's clip factor
 
-    def kept_scale(*args):
-        scales.append(clip_scale(*args))
+    def kept_scale(*args, **kwargs):
+        scales.append(clip_scale(*args, **kwargs))
         return scales[-1]
 
     state_module.clip_scale = kept_scale

@@ -88,9 +88,10 @@ class TextEncoderConfig:
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
     # The JAX package's kernel gates. CUDA tensors always take the kernels and
-    # CPU tensors their twins (the port has no non-kernel path on the card),
-    # so ``attention_impl`` and the value "xla" of the other two select
-    # nothing and are kept for YAML compatibility.
+    # CPU tensors their twins (the port has no non-kernel path on the card
+    # but tensor parallelism's FFN and epilogue, plain products in the JAX
+    # package too), so ``attention_impl`` and the value "xla" of the other
+    # two select nothing and are kept for YAML compatibility.
     attention_impl: str = "auto"
     # "fused": the residual-free FFN kernel on every path, rematerialising
     # backward. "auto" / "fused-saved": the saved-residual kernel on gradient

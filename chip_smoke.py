@@ -4,7 +4,7 @@
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
     python3 chip_smoke.py --only serve      # build, then serving steps 1-5 alone
     python3 chip_smoke.py --only driver     # build, then step 9 alone
-    python3 chip_smoke.py --only determinism  # build, then step 4's pin and its diagnosis
+    python3 chip_smoke.py --only determinism [--tree DIR]  # build, then step 4's pin, diagnosed
     python3 chip_smoke.py --only bench      # build, then bench.py's line (steps 3, 4 and two windows)
     python3 chip_smoke.py --only distributed  # build, then step 10 alone
     python3 chip_smoke.py --only tp         # build, then step 10 (5) alone
@@ -157,7 +157,9 @@ serve`` likewise runs step 8's parts (1) to (5) alone, ``--only driver`` step
 nccl`` runs step 10 (3) and (5)'s bf16 step on two NCCL ranks, one a card (a
 host of two cards or more); ``--only determinism`` step 4's pin, and one
 step under ``torch.use_deterministic_algorithms(True, warn_only=True)``
-that prints the ops the library has no deterministic path for; ``--only
+that prints the ops the library has no deterministic path for (with
+``--tree DIR`` another checkout's package, its results printed and not
+held: the parent of the repair shows the fault); ``--only
 bench`` prints ``bench.py``'s line from steps 3 and 4 and the two-window
 forward, for comparing trees. ``--only
 attention`` does the same for the two attention kernels alone, through the
@@ -1042,7 +1044,7 @@ def _differing(a: dict, b: dict) -> list:
     return [n for n in a if not torch.equal(a[n], b[n])]
 
 
-def determinism(dev, probe: bool = False):
+def determinism(dev, tree: str = HERE, probe: bool = False):
     """The bf16 flagship train step is bit-repeatable (ROADMAP Queue 3): two
     runs of one step from one seed give the same loss, every gradient and
     every parameter bit for bit, and two runs of DETERMINISM_STEPS steps the
@@ -1052,23 +1054,30 @@ def determinism(dev, probe: bool = False):
     and the port's ``embedding_lookup`` (held bit-equal). With ``probe``
     (``--only determinism``) one more step under
     ``torch.use_deterministic_algorithms(True, warn_only=True)`` prints each
-    op that the library has no deterministic path for."""
+    op that the library has no deterministic path for. ``tree``: the
+    checkout whose package runs (``--tree DIR``); another tree's results are
+    printed, not held (an earlier commit shows the fault)."""
     import warnings
 
-    from vibertgrid_tpu_torch.ops.segments import embedding_lookup
-
+    own = os.path.abspath(tree) == HERE
     library = _repeats_of_embedding_grad(dev, lambda w, ids: torch.nn.functional.embedding(ids, w))
-    ours = _repeats_of_embedding_grad(dev, embedding_lookup)
-    print(f"embedding gradient of one id repeated over {B}x{T + 2} tokens, 4 runs: "
-          f"F.embedding {library} of 3 differ from the first, embedding_lookup {ours}")
-    if ours:
-        raise AssertionError("embedding_lookup's gradient differs between runs")
+    line = (f"embedding gradient of one id repeated over {B}x{T + 2} tokens, 4 runs: "
+            f"F.embedding {library} of 3 differ from the first")
+    if own:
+        from vibertgrid_tpu_torch.ops.segments import embedding_lookup
+
+        ours = _repeats_of_embedding_grad(dev, embedding_lookup)
+        print(f"{line}, embedding_lookup {ours}")
+        if ours:
+            raise AssertionError("embedding_lookup's gradient differs between runs")
+    else:
+        print(f"{line} (package of {tree})")
     (l1, g1, p1), (l2, g2, p2) = _flagship_run(dev, 1), _flagship_run(dev, 1)
     grads, params = _differing(g1, g2), _differing(p1, p2)
     print(f"flagship bf16 train step twice from one seed: loss {l1[0]:.6f} / {l2[0]:.6f}, "
           f"gradients differing {len(grads)} of {len(g1)} {grads[:6]}, parameters and "
           f"statistics after it differing {len(params)} of {len(p1)} {params[:6]}")
-    if l1 != l2 or grads or params:
+    if own and (l1 != l2 or grads or params):
         raise AssertionError("two flagship train steps from one seed differ")
     del g1, g2, p1, p2
     (l1, _, p1), (l2, _, p2) = (_flagship_run(dev, DETERMINISM_STEPS) for _ in range(2))
@@ -1076,7 +1085,7 @@ def determinism(dev, probe: bool = False):
     print(f"flagship bf16 trajectory of {DETERMINISM_STEPS} steps twice: losses "
           f"{', '.join(f'{x:.6f}' for x in l1)} / {', '.join(f'{x:.6f}' for x in l2)}; "
           f"parameters differing after it: {len(params)}")
-    if l1 != l2 or params:
+    if own and (l1 != l2 or params):
         raise AssertionError("two flagship trajectories from one seed differ")
     del p1, p2
     if probe:
@@ -3210,14 +3219,15 @@ KERNEL_MODES = {"attention": attention_times, "ffn": ffn_times, "proj_ln": proj_
 
 def main(argv) -> int:
     tree = HERE
-    kernel_modes = [["--only", mode] for mode in KERNEL_MODES]
+    kernel_modes = [["--only", mode] for mode in (*KERNEL_MODES, "determinism")]
     if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
     rank_mode = len(argv) == 3 and argv[0] == "--rank" and argv[1] in RANK_PARTS
-    phases = ("flagship", "determinism", "bench", "serve", "driver", "distributed", "tp", "nccl")
+    phases = ("flagship", "bench", "serve", "driver", "distributed", "tp", "nccl")
     if not rank_mode and argv not in ([], *(["--only", m] for m in phases), *kernel_modes):
         print(f"usage: python3 chip_smoke.py [--only {' | --only '.join(phases)} | "
-              f"--only {'|'.join(KERNEL_MODES)} [--tree DIR]]", file=sys.stderr)
+              f"--only {'|'.join((*KERNEL_MODES, 'determinism'))} [--tree DIR]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -3242,6 +3252,10 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if argv == ["--only", "determinism"]:  # step 4's pin, with the library's diagnosis
+        determinism(dev, tree, probe=True)
+        print(smi)
+        return 0
     if argv in kernel_modes:  # one kernel or pair alone, for comparing trees
         KERNEL_MODES[argv[1]](dev, tree)
         print(smi)
@@ -3264,10 +3278,6 @@ def main(argv) -> int:
         return 0
     if argv == ["--only", "tp"]:  # step 10 (5): tensor parallelism alone
         tp_phase(dev, [])
-        print(smi)
-        return 0
-    if argv == ["--only", "determinism"]:  # step 4's pin, with the library's diagnosis
-        determinism(dev, probe=True)
         print(smi)
         return 0
     if argv == ["--only", "bench"]:  # bench.py's line, for comparing trees

@@ -2427,19 +2427,14 @@ def _tp_layout(world: int):
     return make_mesh(world // TP_MODEL, TP_MODEL)
 
 
-def _whole(named: dict, layout) -> dict:
-    """The model group's slices of ``named`` gathered into whole tensors."""
-    from vibertgrid_tpu_torch.parallel.sharding import gather_whole, split_axis
-
-    return gather_whole(named, {n: split_axis(n, t.ndim) for n, t in named.items()}, layout)
-
-
 def _whole_params_equal(model, layout) -> bool:
     """Whether every rank holds rank 0's whole model bit for bit."""
     import torch.distributed as dist
 
-    flat = torch.cat([t.reshape(-1) for t in _whole(dict(model.named_parameters()),
-                                                     layout).values()])
+    from vibertgrid_tpu_torch.parallel.sharding import gather_whole
+
+    flat = torch.cat([t.reshape(-1) for t in gather_whole(dict(model.named_parameters()),
+                                                          layout).values()])
     theirs = flat.clone()
     dist.broadcast(theirs, 0)
     return torch.equal(flat, theirs)
@@ -2451,6 +2446,7 @@ def _rank_tp_fp32(dev, tmp, rank, world):
     (the watched gradients gathered whole)."""
     from vibertgrid_tpu_torch.entry import TRAIN_SHAPE, train_entry
     from vibertgrid_tpu_torch.parallel.mesh import shard_batch
+    from vibertgrid_tpu_torch.parallel.sharding import gather_whole
     from vibertgrid_tpu_torch.train.seeds import SeedStream
 
     layout = _tp_layout(world)
@@ -2460,7 +2456,7 @@ def _rank_tp_fp32(dev, tmp, rank, world):
                                            shape=dict(TRAIN_SHAPE, b=2))
     _, loss = train_step(state, shard_batch(batch, layout.data_index, layout.data),
                          SeedStream(7))
-    grads = _whole({n: state.model.get_parameter(n).grad for n in DIST_GRADS}, layout)
+    grads = gather_whole({n: state.model.get_parameter(n).grad for n in DIST_GRADS}, layout)
     out = dict(loss=loss.item(), want=ref["loss"], equal=_whole_params_equal(state.model, layout),
                errs={n: ((g.cpu() - ref["grads"][n]).norm() / ref["grads"][n].norm()).item()
                      for n, g in grads.items()})

@@ -242,17 +242,11 @@ def tp_config(inp, layout=None, hidden_dropout: float = 0.0):
     return ModelConfig(text_config=text, mesh=layout, **inp["model_kw"])
 
 
-def whole(named: dict, layout) -> dict:
-    """The model group's slices of ``named`` gathered into whole tensors."""
-    from vibertgrid_tpu_torch.parallel.sharding import gather_whole, split_axis
-
-    return gather_whole(named, {n: split_axis(n, t.ndim) for n, t in named.items()}, layout)
-
-
 def run_tp_steps(state, batch, seed: int, steps: int, layout, clip_steps: int = 0):
     """``run_steps`` on a tensor-parallel state: the gradients and
     parameters gathered whole before they are kept, and the clip factor as
     each step applied it."""
+    from vibertgrid_tpu_torch.parallel.sharding import gather_whole
     from vibertgrid_tpu_torch.train import state as state_module
     from vibertgrid_tpu_torch.train.seeds import step_seeds
 
@@ -274,14 +268,14 @@ def run_tp_steps(state, batch, seed: int, steps: int, layout, clip_steps: int = 
                                                          step_seeds(seed, state.step))
             losses.append(loss.item())
             if i == 0:
-                grads = kept(whole({n: p.grad for n, p in state.model.named_parameters()
+                grads = kept(gather_whole({n: p.grad for n, p in state.model.named_parameters()
                                     if p.grad is not None}, layout))
             if i == steps - 1:
-                params = kept(whole(state.model.state_dict(), layout))
+                params = kept(gather_whole(state.model.state_dict(), layout))
     finally:
         state_module.clip_scale = clip_scale
     return dict(losses=losses, scales=[x.item() for x in applied], grads=grads, params=params,
-                final=kept(whole(state.model.state_dict(), layout)))
+                final=kept(gather_whole(state.model.state_dict(), layout)))
 
 
 def task_tp_forward(inp, rank, world):

@@ -30,7 +30,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from vibertgrid_tpu_torch.parallel.sharding import local_state
+from vibertgrid_tpu_torch.parallel.sharding import local_part, split_axis
 
 _LEAF = {"scale": "weight", "embedding": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var", "transitions": "transitions"}
@@ -85,7 +85,8 @@ def optimizer_state_from_optax(opt_state) -> dict:
 
 def megatron_slices(state_dict: Mapping, layout) -> dict[str, torch.Tensor]:
     """The state dict of one rank of a tensor-parallel model
-    (``parallel.mesh.Layout``): each whole tensor that the JAX package's
-    Megatron rules split cut to the rank's slice (``parallel.sharding``),
-    the others as they are."""
-    return local_state(dict(state_dict), layout)
+    (``parallel.mesh.Layout``) from whole tensors (the port's names): each
+    tensor that the JAX package's Megatron rules split cut to the rank's
+    slice (``parallel.sharding.split_axis``), the others as they are."""
+    return {name: local_part(t, split_axis(name, t.ndim), layout)
+            for name, t in state_dict.items()}

@@ -88,24 +88,17 @@ def apply_shardings(model: torch.nn.Module, layout: Layout) -> torch.nn.Module:
     return model
 
 
-def local_state(whole: dict, layout: Layout | None) -> dict:
-    """A state dict of whole tensors (the port's names) with each split
-    parameter's entry cut to this rank's slice: what a tensor-parallel
-    model's ``load_state_dict`` takes."""
-    if layout is None or layout.model == 1:
-        return whole
-    return {name: local_part(t, split_axis(name, t.ndim), layout) for name, t in whole.items()}
-
-
-def gather_whole(pieces: dict, axes: dict, layout: Layout | None) -> dict:
-    """``{key: whole tensor}`` from this rank's slices ``pieces[key]`` along
-    ``axes[key]`` and the model group's (one all-gather a dtype); entries
-    whose axis is None are returned as they are."""
-    split = {k: t for k, t in pieces.items() if axes.get(k) is not None}
+def gather_whole(named: dict, layout: Layout | None) -> dict:
+    """``{name: whole tensor}`` from this rank's entries of ``named`` (the
+    port's names) and the model group's: each split parameter's slices
+    gathered along :func:`split_axis` (one all-gather a dtype), the others
+    as they are."""
+    axes = {n: split_axis(n, t.ndim) for n, t in named.items()}
+    split = {n: t for n, t in named.items() if axes[n] is not None}
     if layout is None or layout.model == 1 or not split:
-        return dict(pieces)
-    whole = all_gather_slices(split, {k: (axes[k],) for k in split}, group=layout.model_group)
-    return {k: whole.get(k, t) for k, t in pieces.items()}
+        return dict(named)
+    whole = all_gather_slices(split, {n: (axes[n],) for n in split}, group=layout.model_group)
+    return {n: whole.get(n, t) for n, t in named.items()}
 
 
 def shard_axis(shape, world: int, min_size: int = 2**16) -> int | None:
@@ -157,15 +150,14 @@ def _by_dtype(tensors: dict) -> list[dict]:
     return list(parts.values())
 
 
-def reduce_scatter_mean(grads: dict, shards: dict, group=None) -> list[torch.Tensor]:
+def reduce_scatter_mean(grads: dict, shards: dict, group=None) -> None:
     """ZeRO-1's gradient exchange over ``group`` (the data group; by default
     every process). ``grads``: ``{param: its whole local gradient}`` for
     split parameters. Writes the mean over the ranks of this rank's slice
     (``shards[param]``) into that slice of each gradient, in place (one
-    reduce-scatter a dtype), and returns those slices; the rest of each
-    gradient keeps this rank's local values, which nothing reads."""
+    reduce-scatter a dtype); the rest of each gradient keeps this rank's
+    local values, which nothing reads."""
     world = dist.get_world_size(group)
-    owned = []
     for part in _by_dtype(grads):
         sizes = [g.numel() // world for g in part.values()]
         first = next(iter(part.values()))
@@ -180,8 +172,6 @@ def reduce_scatter_mean(grads: dict, shards: dict, group=None) -> list[torch.Ten
             ax, start, length = shards[p]
             own = g.narrow(ax, start, length)
             own.copy_(piece.view(own.shape))
-            owned.append(own)
-    return owned
 
 
 def all_gather_slices(pieces: dict, shards: dict, out: dict | None = None,

@@ -33,13 +33,8 @@ import torch
 import torch.distributed as dist
 
 from vibertgrid_tpu_torch.parallel.mesh import get_world_size, is_main_process
-from vibertgrid_tpu_torch.parallel.sharding import (
-    gather_whole,
-    local_part,
-    local_state,
-    param_shardings,
-    split_axis,
-)
+from vibertgrid_tpu_torch.convert import megatron_slices
+from vibertgrid_tpu_torch.parallel.sharding import gather_whole, local_part, split_axis
 from vibertgrid_tpu_torch.train.state import TrainState
 
 _STATE_FILE = "state.pt"
@@ -54,18 +49,15 @@ def _payload(state: TrainState) -> dict:
     model = state.model
     layout = _layout(model)
     named = dict(model.named_parameters())
-    split = param_shardings(model, layout)
-    axes = {n: split[p] for n, p in named.items()}
     optimizer = state.optimizer
     slots = optimizer.gathered_state()  # whole tensors, also under ZeRO-1
     by_name = {name: slots[p] for name, p in named.items() if p in slots}
     for slot in sorted({k for st in by_name.values() for k in st}):
-        whole = gather_whole({n: st[slot] for n, st in by_name.items() if slot in st}, axes,
-                             layout)
+        whole = gather_whole({n: st[slot] for n, st in by_name.items() if slot in st}, layout)
         for n, t in whole.items():
             by_name[n][slot] = t
     return {
-        "model": gather_whole(model.state_dict(), axes, layout),
+        "model": gather_whole(model.state_dict(), layout),
         "optimizer": {
             "count": optimizer.count,
             "slots": by_name,
@@ -135,7 +127,7 @@ def _read(path: str, model: torch.nn.Module) -> tuple[dict, dict]:
     device = next(model.parameters()).device
     payload = torch.load(os.path.join(path, _STATE_FILE), map_location=device,
                          weights_only=True)
-    model.load_state_dict(local_state(payload["model"], _layout(model)), strict=True)
+    model.load_state_dict(megatron_slices(payload["model"], _layout(model)), strict=True)
     return payload, meta
 
 

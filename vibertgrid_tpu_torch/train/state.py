@@ -102,25 +102,19 @@ def apply_gradients(optimizer: DualOptimizer, loss: torch.Tensor, parallel: bool
     layout = layout or (current_layout() if parallel else Layout())
     grads = {p: p.grad for g in optimizer.param_groups for p in g["params"]
              if p.grad is not None}
-    whole = [g for p, g in grads.items() if p not in optimizer.shards]
-    owned = []
+    whole = {p: g for p, g in grads.items() if p not in optimizer.shards}
+    owned = {}
     if parallel and layout.data > 1:
-        average_gradients(whole, layout.data_group)
-        owned = reduce_scatter_mean({p: g for p, g in grads.items()
-                                     if p in optimizer.shards}, optimizer.shards,
-                                    layout.data_group)
-    if split:
-        # whole gradients and ZeRO-1 slices, each apart for the split parameters
-        zero = [p for p in grads if p in optimizer.shards]
-        scale = clip_scale(
-            loss, [g for p, g in grads.items() if p not in optimizer.shards and p not in split],
-            loss_clip_tresh, clip_norm,
-            [optimizer._owned(grads[p], p) for p in zero if p not in split] if owned else (),
-            split=[g for p, g in grads.items() if p not in optimizer.shards and p in split],
-            split_owned=[optimizer._owned(grads[p], p) for p in zero if p in split] if owned
-            else (), layout=layout)
-    else:
-        scale = clip_scale(loss, whole, loss_clip_tresh, clip_norm, owned, layout=layout)
+        average_gradients(list(whole.values()), layout.data_group)
+        zero = {p: g for p, g in grads.items() if p in optimizer.shards}
+        reduce_scatter_mean(zero, optimizer.shards, layout.data_group)
+        owned = {p: optimizer._owned(g, p) for p, g in zero.items()}
+    # whole gradients and ZeRO-1 slices, those of the split parameters apart
+    scale = clip_scale(
+        loss, [g for p, g in whole.items() if p not in split], loss_clip_tresh, clip_norm,
+        [o for p, o in owned.items() if p not in split],
+        split=[g for p, g in whole.items() if p in split],
+        split_owned=[o for p, o in owned.items() if p in split], layout=layout)
     optimizer.step(grad_scale=scale)
 
 

@@ -63,20 +63,20 @@ def _env(rank: int, port: int, world: int = WORLD) -> dict:
                 MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="2")
 
 
-def _start(task: str, inputs: dict, tmp) -> tuple:
-    """Start ``task`` in two ranks; :func:`_wait` collects their results."""
+def _start(task: str, inputs: dict, tmp, world: int = WORLD) -> tuple:
+    """Start ``task`` in ``world`` ranks; :func:`_wait` collects their results."""
     path = os.path.join(tmp, f"{task}_in.pt")
     torch.save(inputs, path)
     port = _free_port()
-    procs = [subprocess.Popen([sys.executable, WORKER, task, path, str(tmp)], env=_env(r, port),
-                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(WORLD)]
+    procs = [subprocess.Popen([sys.executable, WORKER, task, path, str(tmp)],
+                              env=_env(r, port, world), cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
     return task, tmp, procs
 
 
 def _wait(run: tuple, timeout: float = 300) -> list:
     """The ranks' results in rank order. A rank that fails fails the run,
-    with both ranks' output."""
+    with every rank's output."""
     task, tmp, procs = run
     outs = []
     try:
@@ -91,7 +91,7 @@ def _wait(run: tuple, timeout: float = 300) -> list:
                           for r, (p, o) in enumerate(zip(procs, outs)))
         raise AssertionError(f"{task}: a rank failed\n{tails}")
     return [torch.load(os.path.join(tmp, f"{task}_{r}.pt"), weights_only=False)
-            for r in range(WORLD)]
+            for r in range(len(procs))]
 
 
 def _rows(x: torch.Tensor, rank: int) -> torch.Tensor:

@@ -25,8 +25,6 @@ partial sums added after.
 """
 
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,15 +33,7 @@ import pytest
 import torch
 import yaml
 
-from tests.test_torch_parallel import (
-    WORKER,
-    REPO,
-    _close_grads,
-    _close_params,
-    _env,
-    _free_port,
-    _same,
-)
+from tests.test_torch_parallel import _close_grads, _close_params, _same, _start, _wait
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -52,36 +42,6 @@ def few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
-
-
-def _start(task: str, inputs: dict, tmp, world: int) -> tuple:
-    path = os.path.join(tmp, f"{task}_in.pt")
-    torch.save(inputs, path)
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, WORKER, task, path, str(tmp)],
-                              env=_env(r, port, world), cwd=REPO, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    return task, tmp, procs
-
-
-def _wait(run: tuple, timeout: float = 300) -> list:
-    """The ranks' results in rank order; a rank that fails fails the test
-    with every rank's output."""
-    task, tmp, procs = run
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs[len(outs):]:
-            p.kill()
-            outs.append(p.communicate()[0])
-    if any(p.returncode for p in procs):
-        tails = "\n".join(f"--- rank {r} (exit {p.returncode}):\n{o[-3000:]}"
-                          for r, (p, o) in enumerate(zip(procs, outs)))
-        raise AssertionError(f"{task}: a rank failed\n{tails}")
-    return [torch.load(os.path.join(tmp, f"{task}_{r}.pt"), weights_only=False)
-            for r in range(len(procs))]
 
 
 # ---------------------------------------------------------------- placement

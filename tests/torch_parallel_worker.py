@@ -295,9 +295,9 @@ def task_tp_forward(inp, rank, world):
 
 
 def task_tp_train(inp, rank, world):
-    """``data = 2 x model = 2``, hidden dropout on: two steps and a clipped
-    one replicated over the data group, then from a one-process checkpoint
-    one step under ZeRO-1 over the data group, saved as a checkpoint."""
+    """``data = 2 x model = 2``, hidden dropout on: a step and a clipped one
+    replicated over the data group, then from a one-process checkpoint one
+    step under ZeRO-1 over the data group, saved as a checkpoint."""
     from vibertgrid_tpu_torch.entry import train_entry
     from vibertgrid_tpu_torch.parallel.sharding import shard_optimizer_state
     from vibertgrid_tpu_torch.train.checkpoint import CheckpointManager
@@ -307,7 +307,7 @@ def task_tp_train(inp, rank, world):
     out = {"layout": (layout.data, layout.model, layout.data_index, layout.model_index)}
     state, _, batch = train_entry("cpu", config=cfg, hyp=inp["hyp"], shape=inp["shape"])
     batch = shard_batch(batch, layout.data_index, layout.data)
-    out["plain"] = run_tp_steps(state, batch, inp["seed"], 2, layout, clip_steps=1)
+    out["plain"] = run_tp_steps(state, batch, inp["seed"], 1, layout, clip_steps=1)
 
     state, _, _ = train_entry("cpu", config=cfg, hyp=inp["hyp"], shape=inp["shape"])
     ckpt = CheckpointManager(inp["ckpt_dir"])

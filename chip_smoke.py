@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flagship   # build, then steps 3 and 4 alone
+    python3 chip_smoke.py --only host_ops   # build, then step 8 (0) alone: the collate's host ops
     python3 chip_smoke.py --only serve      # build, then serving steps 1-5 alone
     python3 chip_smoke.py --only driver     # build, then step 9 alone
     python3 chip_smoke.py --only determinism [--tree DIR]  # build, then step 4's pin, diagnosed
@@ -61,12 +62,19 @@
    the same seeds, for the flagship and for the full-head model with the
    fused epilogue, the forward also at ``roberta-base``'s shapes (pad id 1,
    positions from 2), and the CRF decode, and compares them;
-8. serves at the width of ``vibertgrid_tpu_torch/configs/deployment_sroie.yaml``
+8. (0) builds the collate's C++ host ops (``vibertgrid_tpu_torch/data/native.py``
+   over ``csrc/host_ops.cpp``, with the host's ``g++``) and holds each of
+   the five functions bit for bit against its plain version on three pages
+   (1100x850, 1250x800 and 2000x1400, resized to a short edge of 512), float
+   and uint8 wire, with the host op's and the plain version's median ms for
+   one page and for a 16-page collate through the serving engine's pool;
+   then serves at the width of ``vibertgrid_tpu_torch/configs/deployment_sroie.yaml``
    (BERT-base-uncased, ResNet-34-FPN, simplified head, bf16, short edge 512,
    long edge at most 800) through ``InferenceEngine`` and ``BatchingEngine``
    on numpy pages and the synthetic vocabulary, the category head's last bias
    shifted by its mean logit so that the random weights fill fields (each
-   comparison of answers fails if every field is empty): (1) ``predict`` of one
+   comparison of answers fails if every field is empty; (1), (2) and (5)
+   print the collate's ms a batch): (1) ``predict`` of one
    document of 128 segments, timed, with its dispatch under
    ``torch.cuda.set_sync_debug_mode("error")``, and an empty-OCR request;
    (2) ``predict_many`` of 1, 2, 4 and 16 documents, the 16's device time and
@@ -152,6 +160,7 @@ path, the distributed paths among them (per rank).
 ``--only flagship`` is for comparing two trees on one card: run it from each
 tree's root in turns (parent, change, change, parent) in one shell command and
 read the two lines "flagship forward" and "flagship train step"; ``--only
+host_ops`` runs step 8 (0) alone; ``--only
 serve`` likewise runs step 8's parts (1) to (5) alone, ``--only driver`` step
 9, ``--only distributed`` step 10, ``--only tp`` step 10 (5); ``--only
 nccl`` runs step 10 (3) and (5)'s bf16 step on two NCCL ranks, one a card (a
@@ -1498,6 +1507,26 @@ def _counted(engine, formed):
     engine._dispatch = counted
 
 
+@contextlib.contextmanager
+def _collate_times(engine):
+    """The host ms of every ``engine._collate`` (a batch's resize and pad,
+    through the host op) that the calls inside make."""
+    times = []
+    collate = engine._collate
+
+    def timed(samples):
+        t0 = time.perf_counter()
+        out = collate(samples)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine._collate = timed
+    try:
+        yield times
+    finally:
+        del engine._collate
+
+
 def serve_engine(dev, hyp=DEPLOYMENT_HYP, **kw):
     import tempfile
 
@@ -1540,7 +1569,8 @@ def serving(dev, records, full: bool = True):
     kernels.reset_launch_counts()
     want_one = engine.predict(*one)
     _assert_launches(records, dict(kernels.LAUNCHES), SERVE_LAUNCHES, "serving predict")
-    single_s = _median_s(lambda: engine.predict(*one), 10)
+    with _collate_times(engine) as collates:
+        single_s = _median_s(lambda: engine.predict(*one), 10)
     empty = engine.predict(one[0], [], np.zeros((0, 4), np.int32))
     if empty != {c: "" for c in engine.spec.class_list[1:]}:
         raise AssertionError(f"empty OCR answered {empty}")
@@ -1550,7 +1580,8 @@ def serving(dev, records, full: bool = True):
     print(f"serving predict, 1 document, 128 segments, {n_tok(one)} tokens, canvas "
           f"{engine._collate([sample])[0].images.shape[1:3]}: {single_s * 1e3:.2f} ms "
           f"(median of 10, host clock), of it tokenize {tokenize_ms:.2f} ms and resize and pad "
-          f"{collate_ms:.2f} ms ({100 * (tokenize_ms + collate_ms) / (single_s * 1e3):.1f}%); "
+          f"{collate_ms:.2f} ms ({100 * (tokenize_ms + collate_ms) / (single_s * 1e3):.1f}%; "
+          f"inside the calls the collate took {statistics.median(collates):.2f} ms a batch); "
           f"device time {_device_total_ms(lambda: engine.predict(*one)):.2f} ms; answer {want_one}")
 
     print(f"[serving: step 2 starts at {time.perf_counter() - t_phase:.1f} s]")
@@ -1560,10 +1591,12 @@ def serving(dev, records, full: bool = True):
     for n in (1, 2, 4, 16):
         reqs = pages[:n]
         engine.predict_many(reqs)
-        s = _median_s(lambda: engine.predict_many(reqs), 3 if n == 16 else 5)
-        rates[n] = (s * 1e3, n / s)
-    print("serving predict_many, ms a call and docs/s: "
-          + ", ".join(f"{n} docs {ms:.2f} ms {r:.1f} docs/s" for n, (ms, r) in rates.items()))
+        with _collate_times(engine) as collates:
+            s = _median_s(lambda: engine.predict_many(reqs), 3 if n == 16 else 5)
+        rates[n] = (s * 1e3, n / s, statistics.median(collates))
+    print("serving predict_many, ms a call, docs/s and the collate's ms a batch: "
+          + ", ".join(f"{n} docs {ms:.2f} ms {r:.1f} docs/s collate {c:.2f} ms"
+                      for n, (ms, r, c) in rates.items()))
     tokenize_s = _median_s(lambda: [engine._make_sample(*r) for r in pages], 3)
     samples = [engine._make_sample(*r) for r in pages]
     collate_s = _median_s(lambda: engine._collate(samples), 3)
@@ -1636,12 +1669,13 @@ def serving(dev, records, full: bool = True):
                 results[j] = front.predict(*reqs[j])
 
         threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        batching_s = time.perf_counter() - t0
+        with _collate_times(engine) as collates:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            batching_s = time.perf_counter() - t0
     finally:
         front.close()
         del engine._dispatch
@@ -1660,7 +1694,8 @@ def serving(dev, records, full: bool = True):
         got_scores[i] = row_of[id(req[1])][:scores[0].shape[0]]
     _agree("BatchingEngine answers vs predict", results, alone, got_scores, want_scores)
     print(f"BatchingEngine, 8 threads x 4 requests, max_batch 8, max_wait_ms 5: "
-          f"{len(reqs) / batching_s:.1f} docs/s, batches formed {sizes}")
+          f"{len(reqs) / batching_s:.1f} docs/s, batches formed {sizes}, the collate "
+          f"{statistics.median(collates):.2f} ms a batch (median)")
     if not full:
         print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
         return
@@ -1699,6 +1734,146 @@ def serving(dev, records, full: bool = True):
     # 9. the HTTP front
     http_round_trip(engine, pages[5:8])
     print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---- the host ops of the collate ----
+
+HOST_PAGES = (A4, TALL, (2000, 1400))  # resized to 662x512, 800x512, 731x512
+
+
+class _PlainHostOps:
+    """``data/native.py``'s two resize entry points as their plain versions
+    (torch ops on CPU tensors), swapped into ``data.dataset`` to build or
+    time the same batch without the host op."""
+
+    @staticmethod
+    def bilinear_resize_norm(image, out_h, out_w, mean, std):
+        import numpy as np
+
+        from vibertgrid_tpu_torch.data import transform
+
+        out = np.empty((out_h, out_w, image.shape[2]), np.float32)
+        transform.resize_normalize_into(image, out, out_h, out_w, mean, std)
+        return out
+
+    @staticmethod
+    def bilinear_resize_norm_into(image, dst, out_h, out_w, mean, std):
+        from vibertgrid_tpu_torch.data import transform
+
+        transform.resize_normalize_into(image, dst, out_h, out_w, mean, std)
+
+
+@contextlib.contextmanager
+def _plain_collate():
+    from vibertgrid_tpu_torch.data import dataset
+
+    native = dataset.native
+    dataset.native = _PlainHostOps
+    try:
+        yield
+    finally:
+        dataset.native = native
+
+
+def _host_median_ms(fn, reps: int) -> float:
+    fn()
+    return _median_s(fn, reps) * 1e3
+
+
+def _equal_bits(what, got, want):
+    import numpy as np
+
+    if not (got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want)):
+        raise AssertionError(f"host ops: {what} differs from its plain version")
+
+
+def host_ops_phase(dev, smi: str, engine=None):
+    """The port's C++ host ops (``data/native.py``, ``csrc/host_ops.cpp``) on
+    the card's host (``--only host_ops``): built from the source, then each of
+    the five functions bit for bit against its plain version on the serving
+    pages (1100x850, 1250x800 and 2000x1400 to a short edge of 512), float
+    and uint8 wire; the median ms of the host op and of the plain version for
+    one page, and for a 16-page collate through the serving engine's pool."""
+    import numpy as np
+
+    from vibertgrid_tpu_torch.data import native, transform
+    from vibertgrid_tpu_torch.data.dataset import Collator
+    from vibertgrid_tpu_torch.ops.rasterize import box_winner_map
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.library()
+    print(f"host ops build: {time.perf_counter() - t0:.1f} s, {os.path.relpath(lib, HERE)}")
+    engine = engine or serve_engine(dev)
+    tr = engine.transform
+    mean = np.asarray(tr.image_mean, np.float32)
+    std = np.asarray(tr.image_std, np.float32)
+    timings = []
+    for hw in HOST_PAGES:
+        image, _, boxes = _serve_request(7, 128, hw=hw)
+        oh, ow = tr.test_output_shape(*hw)
+        bh, bw = transform.bucket_hw(oh, ow)
+        canvas = np.random.default_rng(3).standard_normal((bh, bw, 3)).astype(np.float32)
+        got, want = canvas.copy(), canvas.copy()
+        native.bilinear_resize_norm_into(image, got, oh, ow, mean, std)
+        transform.resize_normalize_into(image, want, oh, ow, mean, std)
+        _equal_bits(f"bilinear_resize_norm_into {hw}", got, want)
+        resized = native.bilinear_resize_norm(image, oh, ow, mean, std)
+        _equal_bits(f"bilinear_resize_norm {hw}", resized, want[:oh, :ow])
+        _equal_bits(f"bilinear_resize {hw}", native.bilinear_resize(image, oh, ow),
+                    transform.bilinear_resize(image, oh, ow))
+        u8, u8_want = np.zeros((bh, bw, 3), np.uint8), np.zeros((bh, bw, 3), np.uint8)
+
+        def wire_u8(dst=u8):
+            transform.round_uint8_into(native.bilinear_resize_norm(
+                image, oh, ow, transform.UINT8_MEAN, transform.UINT8_STD), dst)
+
+        wire_u8()
+        transform.resize_uint8_into(image, u8_want, oh, ow)
+        _equal_bits(f"the uint8 wire {hw}", u8, u8_want)
+        padded, pad_want = np.zeros((bh, bw, 3), np.float32), np.zeros((bh, bw, 3), np.float32)
+        native.pad_into(resized, padded)
+        pad_want[:oh, :ow] = resized
+        _equal_bits(f"pad_into {hw}", padded, pad_want)
+        scaled = tr.rescale_boxes(np.asarray(boxes, np.int32), hw, (oh, ow))
+        mask = np.arange(len(scaled)) % 7 != 3
+        for stride in (1, 8):
+            gh, gw = bh // stride, bw // stride
+            _equal_bits(f"rasterize_winner {hw} stride {stride}",
+                        native.rasterize_winner(scaled, mask, gh, gw, stride),
+                        box_winner_map(torch.from_numpy(scaled), torch.from_numpy(mask),
+                                       height=gh, width=gw, stride=stride).numpy())
+        ms = {
+            "float": (_host_median_ms(lambda: native.bilinear_resize_norm_into(
+                image, got, oh, ow, mean, std), 20), _host_median_ms(
+                lambda: transform.resize_normalize_into(image, want, oh, ow, mean, std), 20)),
+            "uint8": (_host_median_ms(wire_u8, 20), _host_median_ms(
+                lambda: transform.resize_uint8_into(image, u8_want, oh, ow), 20)),
+        }
+        timings.append(f"{hw[0]}x{hw[1]} -> {oh}x{ow}: " + ", ".join(
+            f"{k} {a:.2f} ms (plain {b:.2f}, {b / a:.2f}x)" for k, (a, b) in ms.items()))
+    print("host ops, five functions bit-equal to their plain versions on "
+          f"{len(HOST_PAGES)} pages, float and uint8 wire")
+    print(f"host ops, one page resized into its canvas, median of 20, host clock "
+          f"({os.cpu_count()} cores; {smi}): " + "; ".join(timings))
+
+    # a 16-page collate through the engine's pool, host op against plain
+    samples = [engine._make_sample(*_serve_request(i, 128, hw=HOST_PAGES[i % 3]))
+               for i in range(16)]
+    lines = []
+    for wire, collator in (("uint8", Collator(tr, emit_uint8=True)), ("float", Collator(tr))):
+        run = lambda: collator(samples, train=False, pool=engine._pool)
+        got = run()[0].images
+        native_ms = _host_median_ms(run, 5)
+        with _plain_collate():
+            want = run()[0].images
+            plain_ms = _host_median_ms(run, 5)
+        _equal_bits(f"a 16-page {wire} collate", got, want)
+        lines.append(f"{wire} {native_ms:.2f} ms (plain {plain_ms:.2f}, "
+                     f"{plain_ms / native_ms:.2f}x), canvas {got.shape}")
+    print(f"host ops, a 16-page collate through the engine's pool of "
+          f"{engine._pool._max_workers} threads, bit-equal to the plain one, median of 5 "
+          f"({smi}): " + "; ".join(lines))
 
 
 # ---- the training driver path ----
@@ -3219,7 +3394,7 @@ def main(argv) -> int:
     if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
     rank_mode = len(argv) == 3 and argv[0] == "--rank" and argv[1] in RANK_PARTS
-    phases = ("flagship", "bench", "serve", "driver", "distributed", "tp", "nccl")
+    phases = ("flagship", "bench", "host_ops", "serve", "driver", "distributed", "tp", "nccl")
     if not rank_mode and argv not in ([], *(["--only", m] for m in phases), *kernel_modes):
         print(f"usage: python3 chip_smoke.py [--only {' | --only '.join(phases)} | "
               f"--only {'|'.join((*KERNEL_MODES, 'determinism'))} [--tree DIR]]",
@@ -3254,6 +3429,10 @@ def main(argv) -> int:
         return 0
     if argv in kernel_modes:  # one kernel or pair alone, for comparing trees
         KERNEL_MODES[argv[1]](dev, tree)
+        print(smi)
+        return 0
+    if argv == ["--only", "host_ops"]:  # the collate's C++ host ops alone
+        host_ops_phase(dev, smi)
         print(smi)
         return 0
     if argv == ["--only", "serve"]:  # serving steps 1-5, for comparing trees
@@ -3311,6 +3490,7 @@ def main(argv) -> int:
         ("bert_model.layer.0.attention.out.weight", "field_type_head.pos_neg_net.out.weight",
          "semantic_segmentation_head.binary_bank.weight"))
     fp32_crf_decode_card_vs_host(dev)
+    host_ops_phase(dev, smi)
     serving(dev, records)
     driver_phase(dev, records)
     distributed_phase(dev, records)

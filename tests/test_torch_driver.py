@@ -26,8 +26,12 @@ import pytest
 import torch
 
 from tests.test_train_driver import tiny_hyp
+from tests.torch_checkpoints import checkpoints_dropped, drop_checkpoints  # noqa: F401
 from vibertgrid_tpu_torch.data.synthetic import make_synthetic_root, synthetic_spec
 from vibertgrid_tpu_torch.train import driver
+
+# each test's checkpoints go once it has read them back
+pytestmark = pytest.mark.usefixtures("checkpoints_dropped")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,8 +73,9 @@ def runs(root, tmp_path_factory):
     saved = sorted(os.listdir(tmp / "b" / "w"))
     resumed = driver.train(_hyp(tmp / "c", root, weights=str(tmp / "b" / "w" / saved[0])),
                            "sroie", spec=spec, device="cpu")
-    return dict(straight=straight, first=first, resumed=resumed, saved=saved,
-                straight_saved=sorted(os.listdir(tmp / "a" / "w")))
+    yield dict(straight=straight, first=first, resumed=resumed, saved=saved,
+               straight_saved=sorted(os.listdir(tmp / "a" / "w")))
+    drop_checkpoints(tmp)
 
 
 def test_train_saves_by_f1_and_resumes(runs):

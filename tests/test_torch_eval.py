@@ -30,6 +30,7 @@ import torch
 
 from tests.test_torch_model import _perturb
 from tests.test_train_driver import tiny_hyp
+from tests.torch_checkpoints import checkpoints_dropped  # noqa: F401
 from vibertgrid_tpu.data.dataset import bucketed_eval_loader as jax_bucketed_eval_loader
 from vibertgrid_tpu.data.spec import SROIE_SPEC
 from vibertgrid_tpu.data.synthetic import CLASS_WORDS, make_synthetic_root, synthetic_spec
@@ -56,6 +57,9 @@ from vibertgrid_tpu_torch.train.driver import build_all, build_tokenizer
 from vibertgrid_tpu_torch.train.optim import make_optimizer
 from vibertgrid_tpu_torch.train.seeds import ReplaySeeds
 from vibertgrid_tpu_torch.train.state import TrainState, make_eval_step
+
+# each test's checkpoints go once it has read them back
+pytestmark = pytest.mark.usefixtures("checkpoints_dropped")
 
 LOSS_RTOL = 1e-4
 EQUAL_KEYS = ("primary_F1", "F1", "token_F1", "token_accuracy", "per_type_F1")

@@ -4,6 +4,10 @@ the plain twins only for CPU tensors.
 - no module of ``vibertgrid_tpu_torch`` and not ``chip_smoke.py`` imports
   jax, flax or ``vibertgrid_tpu`` (an AST scan, and an import in a fresh
   interpreter);
+- no file of the port names the JAX package's host library
+  (``csrc/libhost_ops.so``) or its build script (``csrc/build.sh``), and a
+  process that runs the port's collate maps only the port's own host
+  library, built under ``build/``;
 - the entry points default to the card and raise where it is absent;
 - on CPU tensors the wrappers run their twins and count no launch.
 
@@ -97,6 +101,42 @@ def test_serve_import_leaves_jax_and_transformers_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+JAX_HOST_LIBRARY = ("libhost_ops", "build.sh")
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cpp", ".cu", ".cuh"))
+    + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_no_part_of_the_jax_host_library(path):
+    text = path.read_text()
+    for name in JAX_HOST_LIBRARY:
+        assert name not in text, f"{path.name} names {name}"
+
+
+def test_the_collate_loads_only_the_ports_host_library():
+    code = (
+        "import numpy as np\n"
+        "from vibertgrid_tpu_torch.data.dataset import Collator, Sample\n"
+        "from vibertgrid_tpu_torch.data.transform import ImageTransform\n"
+        "s = Sample(np.ones((50, 40, 3), np.float32), np.ones(3, np.int32), np.zeros(3, np.int32),\n"
+        "           np.zeros((1, 4), np.int32), np.zeros(1, np.int32), ['a'])\n"
+        "for u8 in (False, True):\n"
+        "    Collator(ImageTransform([0.5] * 3, [0.5] * 3, [32], 32, 64), emit_uint8=u8)([s], False)\n"
+        "maps = open('/proc/self/maps').read().split()\n"
+        "print(sorted({m for m in maps if m.endswith('.so') and 'host' in m}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    loaded = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    assert len(loaded) == 1, loaded
+    lib = Path(loaded[0])
+    assert lib.name == "libvibertgrid_host.so"
+    assert lib.is_relative_to(ROOT / "build" / "vibertgrid_tpu_torch" / "host")
+    assert not (ROOT / "csrc" / "libhost_ops.so").samefile(lib)
 
 
 def test_inference_engine_defaults_to_cuda_and_raises_without_it():

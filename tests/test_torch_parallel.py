@@ -39,6 +39,11 @@ import pytest
 import torch
 import yaml
 
+from tests.torch_checkpoints import checkpoints_dropped, drop_checkpoints  # noqa: F401
+
+# each test's checkpoints go once it has read them back
+pytestmark = pytest.mark.usefixtures("checkpoints_dropped")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
 WORLD = 2
@@ -386,8 +391,9 @@ def train_case(tmp_path_factory):
     from tests.test_torch_train import MODEL_KW, SHAPE, TRAIN_HYP
 
     tmp = tmp_path_factory.mktemp("train")
-    return dict(model_kw=MODEL_KW, hyp=TRAIN_HYP, shape=dict(SHAPE, b=2 * WORLD), seed=5,
-                min_size=128, ckpt_dir=str(tmp / "ckpt")), tmp
+    yield dict(model_kw=MODEL_KW, hyp=TRAIN_HYP, shape=dict(SHAPE, b=2 * WORLD), seed=5,
+               min_size=128, ckpt_dir=str(tmp / "ckpt")), tmp
+    drop_checkpoints(tmp)
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_checkpoints import checkpoints_dropped  # noqa: F401
 from vibertgrid_tpu.data.synthetic import (
     CLASS_WORDS,
     make_synthetic_root,
@@ -52,6 +53,9 @@ from vibertgrid_tpu_torch.serve.app import _extract_multipart, serve
 from vibertgrid_tpu_torch.serve.batching import BatchingEngine
 from vibertgrid_tpu_torch.serve.engine import InferenceEngine
 from vibertgrid_tpu_torch.serve.ocr_client import parse_ocr_result
+
+# each test's checkpoints go once it has read them back
+pytestmark = pytest.mark.usefixtures("checkpoints_dropped")
 
 HYP = {
     "num_classes": 5,

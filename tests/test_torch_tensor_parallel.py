@@ -17,6 +17,9 @@ width (``TextEncoderConfig.tiny``: 4 heads, so 2 a rank; ``resnet_18_fpn``).
   the parameters after the first), the four ranks' parameters bit-equal;
   then a one-process checkpoint resumed under tensor parallelism and ZeRO-1
   for a step, whose checkpoint resumes in one process bit for bit;
+- two four-rank runs of two steps and a clipped one, and two one-process
+  runs of the same: each side gives the same bits in both runs, every
+  tensor of the state after the third update;
 - ``driver.main`` with ``mesh_model: 2`` on two ranks for an epoch.
 
 The tolerances are ``tests/test_torch_parallel.py``'s: the same fp32
@@ -34,6 +37,10 @@ import torch
 import yaml
 
 from tests.test_torch_parallel import _close_grads, _close_params, _same, _start, _wait
+from tests.torch_checkpoints import checkpoints_dropped, drop_checkpoints  # noqa: F401
+
+# each test's checkpoints go once it has read them back
+pytestmark = pytest.mark.usefixtures("checkpoints_dropped")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -231,7 +238,8 @@ def train_runs(tmp_path_factory):
     ckpt.restore("one", state)
     single["resumed"] = run_tp_steps(state, batch, inp["seed"], 1, None)  # step 2
     single["third"] = run_tp_steps(state, batch, inp["seed"], 1, None)  # step 3
-    return _wait(run, timeout=400), single, inp
+    yield _wait(run, timeout=400), single, inp
+    drop_checkpoints(tmp)
 
 
 def test_four_ranks_step_as_one_process(train_runs):
@@ -282,6 +290,45 @@ def test_a_tp_checkpoint_resumes_in_one_process(train_runs):
     _close_params(kept(state.model.state_dict()), single["resumed"]["final"], steps=1)
     third = run_tp_steps(state, batch, inp["seed"], 1, None)
     np.testing.assert_allclose(third["losses"], single["third"]["losses"], rtol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def repeat_runs(tmp_path_factory):
+    """Two runs of ``tests/torch_parallel_worker.py::tp_three_steps`` on
+    four ranks (``data = 2 x model = 2``), one after the other, and
+    meanwhile two in this process on the concatenated batch."""
+    from tests.test_torch_train import MODEL_KW, SHAPE, TRAIN_HYP
+    from tests.torch_parallel_worker import tp_three_steps
+
+    inp = dict(model_kw=MODEL_KW, hyp=TRAIN_HYP, shape=dict(SHAPE, b=4), seed=5,
+               hidden_dropout=HIDDEN_DROPOUT)
+    ranks, single = [], []
+    for k in range(2):
+        run = _start("tp_repeat", inp, tmp_path_factory.mktemp(f"tp_repeat{k}"), 4)
+        single.append(tp_three_steps(inp))
+        ranks.append(_wait(run, timeout=400))
+    return ranks, single
+
+
+def test_four_ranks_repeat_their_third_step_bit_for_bit(repeat_runs):
+    """The step is deterministic under tensor parallelism: a second run of
+    the four ranks gives each rank's losses and every tensor of its state
+    after the third update bit for bit, and the four ranks hold one model."""
+    ranks, _ = repeat_runs
+    first, second = ranks
+    for a, b in zip(first, second):
+        assert a["losses"] == b["losses"]
+        assert a["digests"] == b["digests"]
+    assert all(g["digests"] == first[0]["digests"] for g in first[1:])
+
+
+def test_one_process_repeats_its_third_step_bit_for_bit(repeat_runs):
+    """The reference the four ranks are held to is deterministic too, so a
+    gap between them is the other summation order of the split sums, not
+    noise (ROADMAP, "Properties")."""
+    _, (a, b) = repeat_runs
+    assert a["losses"] == b["losses"] and a["digests"] == b["digests"]
+    assert len(a["digests"]) > 100
 
 
 # ------------------------------------------------------------------- driver

@@ -13,7 +13,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests.torch_checkpoints import checkpoints_dropped  # noqa: F401
 from vibertgrid_tpu_torch.convert import from_flax
+
+# each test's checkpoints go once it has read them back
+pytestmark = pytest.mark.usefixtures("checkpoints_dropped")
 
 
 # ---------------------------------------------------------------- HuggingFace

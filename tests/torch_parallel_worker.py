@@ -14,6 +14,7 @@ results with one process of the port and with the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import sys
 
@@ -320,12 +321,40 @@ def task_tp_train(inp, rank, world):
     return out
 
 
+def digests(named: dict) -> dict:
+    """Each tensor's bytes as a SHA-256: equal digests are equal bits."""
+    return {n: hashlib.sha256(t.detach().contiguous().numpy().tobytes()).hexdigest()
+            for n, t in named.items()}
+
+
+def tp_three_steps(inp, layout=None) -> dict:
+    """The tiny config from its seed, hidden dropout on: two steps and a
+    clipped one on this data shard (one process where ``layout`` is None);
+    the losses and the digests of the whole state after the third."""
+    from vibertgrid_tpu_torch.entry import train_entry
+    from vibertgrid_tpu_torch.parallel.sharding import gather_whole
+
+    cfg = tp_config(inp, layout, inp["hidden_dropout"])
+    state, _, batch = train_entry("cpu", config=cfg, hyp=inp["hyp"], shape=inp["shape"])
+    if layout is not None:
+        batch = shard_batch(batch, layout.data_index, layout.data)
+    run = run_tp_steps(state, batch, inp["seed"], 2, layout, clip_steps=1)
+    return dict(losses=run["losses"],
+                digests=digests(gather_whole(state.model.state_dict(), layout)))
+
+
+def task_tp_repeat(inp, rank, world):
+    """``data = 2 x model = 2``: :func:`tp_three_steps`."""
+    return tp_three_steps(inp, mesh.make_mesh(2, world // 2))
+
+
 def task_tp_driver(inp, rank, world):
     return task_driver(dict(inp, max_steps=None), rank, world)
 
 
 TASKS = dict(ops=task_ops, train=task_train, eval=task_eval, driver=task_driver,
-             tp_forward=task_tp_forward, tp_train=task_tp_train, tp_driver=task_tp_driver)
+             tp_forward=task_tp_forward, tp_train=task_tp_train, tp_repeat=task_tp_repeat,
+             tp_driver=task_tp_driver)
 
 
 def main(task: str, inputs: str, out_dir: str) -> None:

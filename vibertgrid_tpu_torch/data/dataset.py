@@ -27,12 +27,14 @@ from typing import Any, Iterator, Sequence
 import numpy as np
 import torch
 
+from vibertgrid_tpu_torch.data import native
 from vibertgrid_tpu_torch.data.transform import (
+    UINT8_MEAN,
+    UINT8_STD,
     ImageTransform,
     bucket_count,
     bucket_hw,
-    resize_normalize_into,
-    resize_uint8_into,
+    round_uint8_into,
 )
 from vibertgrid_tpu_torch.data.spec import DatasetSpec
 from vibertgrid_tpu_torch.device import resolve_device
@@ -199,8 +201,9 @@ class Collator:
         rng: np.random.Generator | None = None,
         pool=None,
     ) -> tuple[Batch, EvalAux]:
-        """``pool``: optional executor; the per-sample resize releases the GIL,
-        so it runs across the batch in parallel."""
+        """``pool``: optional executor; the per-sample resize (the C++ host op,
+        :mod:`data.native`) releases the GIL, so it runs across the batch in
+        parallel."""
         b = len(samples)
         # one random min size per image, drawn serially (the reference draws
         # per image too, pipeline/transform.py:192-196)
@@ -222,9 +225,10 @@ class Collator:
             s = samples[i]
             oh, ow = hws[i]
             if self.emit_uint8:
-                resize_uint8_into(s.image, image_arr[i], oh, ow)
-            else:
-                resize_normalize_into(s.image, image_arr[i], oh, ow, mean, std)
+                page = native.bilinear_resize_norm(s.image, oh, ow, UINT8_MEAN, UINT8_STD)
+                round_uint8_into(page, image_arr[i])
+            else:  # straight into the page's slot of the canvas, no pad copy
+                native.bilinear_resize_norm_into(s.image, image_arr[i], oh, ow, mean, std)
             return tr.rescale_boxes(s.boxes, s.image.shape[:2], (oh, ow))
 
         if pool is not None and b > 1:

@@ -3,11 +3,13 @@
 
 The resize follows ``F.interpolate(..., mode='bilinear', align_corners=False)``
 (half-pixel source grid, edge clamp), with the source coordinates in float64
-and the taps in the order of the JAX package's native host op
-(``csrc/host_ops.cpp::bilinear_resize_norm_strided_f32``): the row above lerped
-across, the row below lerped across, then the two lerped down, then
-``(value - mean) * (1 / std)``. It runs as torch ops on CPU tensors, so it
-gives the native op's bits without loading it. Output sizes follow torch's
+and the taps in this order: the row above lerped across, the row below lerped
+across, then the two lerped down, then ``(value - mean) * (1 / std)``.
+:class:`ImageTransform` and the collator run it through the port's C++ host
+op (:mod:`vibertgrid_tpu_torch.data.native`). :func:`resize_normalize_into`,
+:func:`resize_uint8_into` and :func:`bilinear_resize` are its plain version,
+torch ops on CPU tensors with the same bits; the tests hold the host op to
+them, and nothing on the main path calls them. Output sizes follow torch's
 ``recompute_scale_factor=True`` (floor of shape × scale).
 
 Boxes are rescaled on the correct axes (the reference swaps them,
@@ -24,6 +26,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from vibertgrid_tpu_torch.data import native
+
+# the uint8 wire's resize: (x - 0) * 255, rounded on the host
+UINT8_MEAN = np.zeros(3, np.float32)
+UINT8_STD = np.full(3, 1.0 / 255.0, np.float32)
+
 
 def _taps(out_n: int, in_n: int):
     src = (np.arange(out_n, dtype=np.float64) + 0.5) * (in_n / out_n) - 0.5
@@ -39,6 +47,8 @@ def resize_normalize_into(image: np.ndarray, dst: np.ndarray, out_h: int, out_w:
     """Bilinear resize of ``image [H, W, C]`` (float in [0, 1]) to ``out_h x
     out_w``, normalised, written into the top-left of the canvas ``dst [bh,
     bw, C]`` (float32, C-contiguous); the rest of ``dst`` is left as it is.
+    The plain version of :func:`native.bilinear_resize_norm_into`, for the
+    tests; the main path calls the host op.
 
     Separable, in place where it can be: each source row that an output row
     reads is lerped across once (a row's lerp does not depend on which output
@@ -71,21 +81,30 @@ def resize_normalize_into(image: np.ndarray, dst: np.ndarray, out_h: int, out_w:
     torch.mul(down.view(out_h, out_w, c).sub_(mean), inv_std, out=out)
 
 
+def round_uint8_into(page: np.ndarray, dst: np.ndarray) -> None:
+    """``page [h, w, C]`` (float32, values on [0, 255]) rounded half to even
+    and clipped, written into the top-left of the uint8 canvas ``dst [bh, bw,
+    C]``: ``np.clip(np.rint(page), 0, 255)``, one page at a time and not over
+    a whole float canvas."""
+    h, w = page.shape[:2]
+    values = torch.from_numpy(page).round_().clamp_(0.0, 255.0)
+    torch.from_numpy(dst)[:h, :w].copy_(values)
+
+
 def resize_uint8_into(image: np.ndarray, dst: np.ndarray, out_h: int, out_w: int) -> None:
     """The resize scaled to [0, 255], rounded half to even and clipped, written
     into the top-left of the uint8 canvas ``dst [bh, bw, C]``: the values of
     ``np.clip(np.rint(x), 0, 255)`` for ``x`` the resize normalized with mean 0
-    and std 1/255, one page at a time and not over a whole float canvas."""
-    c = image.shape[2]
-    resized = np.empty((out_h, out_w, c), np.float32)
-    resize_normalize_into(image, resized, out_h, out_w, np.zeros(c, np.float32),
-                          np.full(c, 1.0 / 255.0, np.float32))
-    values = torch.from_numpy(resized).round_().clamp_(0.0, 255.0)
-    torch.from_numpy(dst)[:out_h, :out_w].copy_(values)
+    and std 1/255. The plain version of the collator's uint8 wire (the host
+    op's resize, then :func:`round_uint8_into`), for the tests."""
+    resized = np.empty((out_h, out_w, image.shape[2]), np.float32)
+    resize_normalize_into(image, resized, out_h, out_w, UINT8_MEAN, UINT8_STD)
+    round_uint8_into(resized, dst)
 
 
 def bilinear_resize(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """The resize alone: ``image [H, W, C]`` → ``[out_h, out_w, C]`` float32."""
+    """The resize alone: ``image [H, W, C]`` → ``[out_h, out_w, C]`` float32.
+    The plain version of :func:`native.bilinear_resize`, for the tests."""
     out = np.empty((out_h, out_w, image.shape[2]), np.float32)
     resize_normalize_into(image, out, out_h, out_w, np.zeros(image.shape[2]),
                           np.ones(image.shape[2]))
@@ -114,8 +133,9 @@ class ImageTransform:
         h, w = image.shape[:2]
         min_size = self.draw_min_size(rng) if train else float(self.test_min_size)
         out_h, out_w = self._output_shape(h, w, min_size)
-        resized = np.empty((out_h, out_w, image.shape[2]), np.float32)
-        resize_normalize_into(image, resized, out_h, out_w, self.image_mean, self.image_std)
+        resized = native.bilinear_resize_norm(image, out_h, out_w,
+                                              np.asarray(self.image_mean, np.float32),
+                                              np.asarray(self.image_std, np.float32))
         return resized, self.rescale_boxes(boxes, (h, w), (out_h, out_w)), (out_h, out_w)
 
     def draw_min_size(self, rng: np.random.Generator) -> float:

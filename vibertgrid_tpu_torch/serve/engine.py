@@ -73,9 +73,9 @@ class InferenceEngine:
         self.ocr_url = hyp.get("ocr_url", "")
         self.parse_mode = hyp.get("parse_mode", "eng_line")
         self.result_filter = RESULT_FILTERS.get(self.spec.name)
-        # A batch's pages are resized in parallel: the torch resize releases
-        # the GIL, and its gathers use torch's intra-op threads poorly. Half
-        # the cores, as those threads still work inside each resize.
+        # A batch's pages are resized in parallel: the C++ host op
+        # (data/native.py) releases the GIL. Half the cores, the size the
+        # torch resize before it was tuned to; not tuned again since.
         self._pool = ThreadPoolExecutor(max_workers=max(1, (os.cpu_count() or 2) // 2))
 
         # The uint8 wire: 4x fewer host-to-device bytes, normalized on the

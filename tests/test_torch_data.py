@@ -1,9 +1,10 @@
 """The port's data and eval layers against the JAX package's, on the CPU.
 
 - ``get_spec``: every dataset's class list, tag maps and statistics equal;
-- ``ImageTransform``: the port's torch resize against the JAX one (its
-  native host op) within rtol 1e-4, atol 1e-5 (``tests/test_data_eval.py``'s
-  tolerance); boxes and output shapes exact;
+- ``ImageTransform``: the port's resize (its C++ host op) against the JAX
+  one (the JAX package's host op) within rtol 1e-4, atol 1e-5
+  (``tests/test_data_eval.py``'s tolerance); boxes and output shapes exact;
+  the torch plain version bit-equal to the JAX host op;
 - ``bucket_hw`` and ``bucket_count`` equal over a sweep;
 - ``Collator`` on ``make_synthetic_root`` samples, fp32 and uint8: tokens,
   seg_ids, boxes and masks exact, images at the resize tolerance, the uint8

@@ -28,6 +28,8 @@ partial sums added after.
 """
 
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +38,7 @@ import pytest
 import torch
 import yaml
 
-from tests.test_torch_parallel import _close_grads, _close_params, _same, _start, _wait
+from tests.test_torch_parallel import REPO, _close_grads, _close_params, _same, _start, _wait
 from tests.torch_checkpoints import checkpoints_dropped, drop_checkpoints  # noqa: F401
 
 # each test's checkpoints go once it has read them back
@@ -329,6 +331,36 @@ def test_one_process_repeats_its_third_step_bit_for_bit(repeat_runs):
     _, (a, b) = repeat_runs
     assert a["losses"] == b["losses"] and a["digests"] == b["digests"]
     assert len(a["digests"]) > 100
+
+
+FIRST_CALL = """
+import torch
+from vibertgrid_tpu_torch.device import resolve_device
+torch.set_num_threads(2)
+resolve_device("cpu")
+g = torch.Generator().manual_seed(0)
+x = torch.rand(2, 2, 510, 510, generator=g) * 3 + 0.01
+a = torch.randn(2, 2, 510, 16, generator=g)
+torch.matmul(a, a.transpose(-1, -2))
+print(torch.equal(torch.tanh(x), torch.tanh(x)))
+"""
+
+
+def test_vector_math_first_call_repeats_after_a_cpu_device_is_resolved():
+    """The fault behind a four-rank run that missed the other bits
+    (``device.py::settle_vector_math``): right after a BLAS product, the
+    first two-thread call of ``exp``, ``log``, ``erf``, ``tanh`` or ``sqrt``
+    in a process computed one thread's half with another code path in 5-16%
+    of processes. Once the CPU device is resolved, the first ``tanh`` equals
+    the second in each of 24 fresh processes."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    outs = []
+    for _ in range(6):
+        procs = [subprocess.Popen([sys.executable, "-c", FIRST_CALL], cwd=REPO, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for _ in range(4)]
+        outs += [p.communicate(timeout=120)[0].strip() for p in procs]
+    assert outs == ["True"] * 24, outs
 
 
 # ------------------------------------------------------------------- driver

@@ -28,7 +28,7 @@ import torch
 
 from vibertgrid_tpu_torch.data import native
 
-# the uint8 wire's resize: (x - 0) * 255, rounded on the host
+# the collator's uint8 wire (three channels): the resize times 255, rounded
 UINT8_MEAN = np.zeros(3, np.float32)
 UINT8_STD = np.full(3, 1.0 / 255.0, np.float32)
 
@@ -97,8 +97,10 @@ def resize_uint8_into(image: np.ndarray, dst: np.ndarray, out_h: int, out_w: int
     ``np.clip(np.rint(x), 0, 255)`` for ``x`` the resize normalized with mean 0
     and std 1/255. The plain version of the collator's uint8 wire (the host
     op's resize, then :func:`round_uint8_into`), for the tests."""
-    resized = np.empty((out_h, out_w, image.shape[2]), np.float32)
-    resize_normalize_into(image, resized, out_h, out_w, UINT8_MEAN, UINT8_STD)
+    c = image.shape[2]
+    resized = np.empty((out_h, out_w, c), np.float32)
+    resize_normalize_into(image, resized, out_h, out_w, np.zeros(c, np.float32),
+                          np.full(c, 1.0 / 255.0, np.float32))
     round_uint8_into(resized, dst)
 
 

@@ -16,7 +16,7 @@ def settle_vector_math() -> None:
     math on x86 builds) initialise a shared state at their first call. When
     that call runs on two threads after a BLAS product, one thread can
     compute its half with the other code path, one ulp apart: the first
-    ``exp`` of a process differed from the second in 5-15% of processes on
+    ``exp`` of a process differed from the second in 5-16% of processes on
     an 8-core host, and a four-rank CPU train step then lost its bit
     repeatability. One call on a single element (serial) settles the state
     for every function, once a process."""

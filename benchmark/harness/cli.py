@@ -2,8 +2,8 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-The cell is ``benchmark/workloads/<cell>.json``: its kind (``serve`` or
-``train``), configuration (``benchmark/configs/<config>.json``), traffic mix
+The cell is ``benchmark/workloads/<cell>.json``: its kind (``train``),
+configuration (``benchmark/configs/<config>.json``), traffic mix
 (``benchmark/traffic/<mix>.json``), chips, the driver's settings and the
 limits of its comparison. The metrics a run prints are the entries of
 ``BENCHMARK.json`` that belong to the cell (its ``end_to_end`` metrics
@@ -48,7 +48,6 @@ class Context:
     t0: float
     control: int = 0
     faults: object = None
-    requests: list = dataclasses.field(default_factory=list)
     notes: dict = dataclasses.field(default_factory=dict)
     shapes: dict = dataclasses.field(default_factory=dict)
 
@@ -128,9 +127,8 @@ def run(argv=None, *, t0: float | None = None, device: str = "cuda",
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    ap.add_argument("--control", type=int, choices=(0, 1, 2), default=0,
-                    help="put the reference in the program's place: 1 in fp8 (the control), "
-                         "2 in bf16 (a witness of what the configuration's precision does)")
+    ap.add_argument("--control", type=int, choices=(0, 1), default=0,
+                    help="1: put the reference, in fp8 (the control), in the program's place")
     args = ap.parse_args(argv)
 
     import torch
@@ -159,11 +157,11 @@ def run(argv=None, *, t0: float | None = None, device: str = "cuda",
     ctx = Context(name=args.workload, cell=cell, config=config, mix=mix, seed=args.seed,
                   seconds=args.seconds, trace=bool(args.trace), device=dev, probe=probe,
                   t0=t0, control=args.control, faults=faults)
-    probe.requests = ctx.requests
-    if cell["kind"] == "serve":
-        from benchmark.harness import serve as driver
-    else:
-        from benchmark.harness import train as driver
+    if cell["kind"] != "train":
+        raise SystemExit(f"cell {args.workload!r} is of kind {cell['kind']!r}: "
+                         "the harness drives training cells")
+    from benchmark.harness import train as driver
+
     checks = driver.run(ctx)
 
     found = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
@@ -182,10 +180,8 @@ def run(argv=None, *, t0: float | None = None, device: str = "cuda",
     if args.trace and probe.trace is not None:
         info["busy_s"] = probe.trace.busy_s
         info["window_s"] = probe.trace.window_s
-    attempted = len(ctx.requests) if cell["kind"] == "serve" else probe.steps
-    failed = sum(1 for r in ctx.requests if "done" not in r) if cell["kind"] == "serve" else 0
     correct = all(value <= limit for _, value, limit in checks)
-    result = {"correct": correct, "attempted": attempted, "failed": failed, "metrics": metrics,
+    result = {"correct": correct, "attempted": probe.steps, "failed": 0, "metrics": metrics,
               "device": info}
     if args.trace and probe.trace is not None:
         result["breakdown"] = probe_mod.breakdown(probe.trace)

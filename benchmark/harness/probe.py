@@ -1,10 +1,10 @@
 """What a run collects for its metrics: host spans around calls into the
-program, the batch shape of every forward, the requests or steps of the
-window, and in a traced run the profiler's device timeline.
+program, the batch shape of every forward, the steps of the window, and in a
+traced run the profiler's device timeline.
 
-Spans are taken from outside: :meth:`Probe.wrap` replaces a method on one
-object by a timed call of the original, so nothing inside the program
-changes. Times are ``time.perf_counter()`` seconds.
+Spans are taken from outside, around the harness's own calls into the
+program, so nothing inside the program changes. Times are
+``time.perf_counter()`` seconds.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ import bisect
 import collections
 import contextlib
 import dataclasses
-import functools
 import json
 import os
 import re
@@ -37,7 +36,6 @@ class Probe:
     def __init__(self):
         self.spans = collections.defaultdict(list)     # name -> [(t0, t1, info)]
         self.forwards = []                             # [(t0, Shape)]
-        self.requests = []                             # serving: one dict a request
         self.window = (0.0, 0.0)                       # perf_counter at the window's ends
         self.steps = 0
         self.docs = 0
@@ -58,22 +56,6 @@ class Probe:
             yield
         finally:
             self.spans[name].append((t0, time.perf_counter(), info))
-
-    def wrap(self, obj, attr: str, name: str, info=None):
-        """Time every call of ``obj.attr`` as span ``name``; ``info(args,
-        result)`` is kept beside it."""
-        original = getattr(obj, attr)
-
-        @functools.wraps(original)
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = original(*args, **kwargs)
-            self.spans[name].append((t0, time.perf_counter(),
-                                     None if info is None else info(args, out)))
-            return out
-
-        setattr(obj, attr, timed)
-        return original
 
     def in_window(self, name: str):
         lo, hi = self.window

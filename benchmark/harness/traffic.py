@@ -1,5 +1,5 @@
 """The one traffic generator. A mix is a data file, ``benchmark/traffic/<mix>.json``,
-of parameters; this module turns it and a seed into documents and arrivals.
+of parameters; this module turns it and a seed into documents.
 
 Parameters a mix may hold:
 
@@ -8,21 +8,18 @@ Parameters a mix may hold:
 - ``segments``: ``{"median", "sigma", "min", "max"}`` (log-normal, clipped)
   or ``{"fixed": n}``: OCR segments a page;
 - ``words_per_segment``: ``[lo, hi]``, uniform, both ends included;
-- ``max_tokens``: words a page at most (one word is one token of the
-  synthetic vocabulary); the last segments lose words beyond it;
-- ``vocab_size``: entries of the synthetic vocabulary (default BERT's);
-- ``token_ids``: ``[lo, hi)`` to draw ids straight from a vocabulary
-  without text (training mixes that bypass the tokenizer); without it the
-  words come from :mod:`benchmark.harness.vocab`;
+- ``max_tokens``: words a page at most (one word is one token); the last
+  segments lose words beyond it;
+- ``token_ids``: ``[lo, hi)``, the ids each token is drawn from, straight
+  from the model's vocabulary (the tokenizer is bypassed);
 - ``class_shares``: the share of segments of each field class (training);
 - ``image_pool``: distinct page images of each size, which the documents
-  share (an image of 1600x700 is 13 MB of float32);
-- ``rate_per_s``: open-loop arrivals a second (serving mixes).
+  share (an image of 1600x700 is 13 MB of float32).
 
-Every seed gets the same multiset of page kinds, segment counts and
-inter-arrival gaps, in another order: the seed changes which document comes
-when and what it says, not how much work a run holds. Words, boxes, classes
-and images are drawn from the seed.
+Every seed gets the same multiset of page kinds and segment counts, in
+another order: the seed changes which document comes
+when and what it says, not how much work a run holds. Token ids, boxes,
+classes and images are drawn from the seed.
 """
 
 from __future__ import annotations
@@ -34,8 +31,6 @@ import os
 import statistics
 
 import numpy as np
-
-from benchmark.harness import vocab
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LINE_PX = 14  # a text line's pitch on the page
@@ -51,7 +46,6 @@ class Document:
     kind: int                  # index into mix["pages"]
     image: int                 # index into the kind's image pool
     boxes: np.ndarray          # [n, 4] int32 (x0, y0, x1, y1), page pixels
-    texts: list[str]           # one string a segment ("" where ids are drawn)
     ids: list[np.ndarray]      # token ids of each segment (int32)
     classes: np.ndarray        # [n] int32 field class of each segment
 
@@ -105,7 +99,7 @@ def documents(mix: dict, seed: int, n: int) -> list[Document]:
     lo, hi = mix["words_per_segment"]
     cap = mix.get("max_tokens")
     shares = mix.get("class_shares")
-    id_range = mix.get("token_ids")
+    id_range = mix["token_ids"]
     pool = mix.get("image_pool", 4)
     docs = []
     for k in range(n):
@@ -117,21 +111,13 @@ def documents(mix: dict, seed: int, n: int) -> list[Document]:
             words = np.where(over > 0, np.maximum(words - over, 0), words)
             words = words[words > 0]
             n_seg = len(words)
-        if id_range is not None:
-            flat = rng.integers(id_range[0], id_range[1], int(words.sum())).astype(np.int32)
-        else:
-            n_words = mix.get("vocab_size", vocab.SIZE) - vocab.FIRST_WORD
-            flat = (vocab.FIRST_WORD + rng.integers(0, n_words, int(words.sum()))).astype(np.int32)
+        flat = rng.integers(id_range[0], id_range[1], int(words.sum())).astype(np.int32)
         ids = np.split(flat, np.cumsum(words)[:-1])
-        if id_range is not None:
-            texts = [""] * n_seg
-        else:
-            texts = [" ".join(vocab.word(int(t) - vocab.FIRST_WORD) for t in seg) for seg in ids]
         classes = (rng.choice(len(shares), n_seg, p=np.asarray(shares) / sum(shares))
                    if shares else np.zeros(n_seg, np.int64)).astype(np.int32)
         docs.append(Document(kind=kind, image=int(rng.integers(0, pool)),
                              boxes=_layout(n_seg, mix["pages"][kind]["hw"], rng),
-                             texts=texts, ids=list(ids), classes=classes))
+                             ids=list(ids), classes=classes))
     return docs
 
 
@@ -153,13 +139,3 @@ def page_images(mix: dict, seed: int) -> list[list[np.ndarray]]:
         out.append(images)
     return out
 
-
-def arrivals(mix: dict, seed: int, seconds: float) -> np.ndarray:
-    """Open-loop due times in seconds from the window's start: a Poisson
-    process at ``rate_per_s`` whose gaps are the exponential's quantiles in
-    an order drawn from the seed, cut at ``seconds``."""
-    rate = float(mix["rate_per_s"])
-    n = int(math.ceil(rate * seconds * 1.2)) + 8
-    gaps = -np.log1p(-_quantiles(n)) / rate
-    due = np.cumsum(gaps[_rng(seed, 5).permutation(n)])
-    return due[due < seconds]

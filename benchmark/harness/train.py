@@ -2,39 +2,32 @@
 on a ``TrainState``, seeded by ``train/seeds.py::step_seeds``, fed through
 ``data/dataset.py::prefetch_to_device``.
 
-Two feeds, by the cell's ``feed``:
-
-- ``batches``: batches of the mix collated by the port's ``Collator`` in
-  set-up (the published train transform: a short side drawn from the
-  configuration's sizes a page) and cycled through the prefetcher: the
-  tokenizer, the page reading and the collate are off the step's path;
-- ``loader``: pages written in the reference's CSV layout under ``TMPDIR``,
-  read by the port's ``KIEDataset`` and ``data_loader`` (tokenizer, image
-  decoding, resize and collate on the loader's thread), epoch after epoch.
+The feed: batches of the mix collated by the port's ``Collator`` in set-up
+(the published train transform: a short side drawn from the configuration's
+sizes a page) and cycled through the prefetcher: the tokenizer, the page
+reading and the collate are off the step's path.
 
 Set-up builds one train state from the seeded weights, drives it through its
 first steps on the feed (the first three are the ones the reference
-follows), warms every batch shape the feed can reach, and hands the same
-state and feed to the window. The window issues steps until its time is up,
-then waits for the device: the documents of every step issued, over that
-time. After the window the reference repeats the first three steps.
+follows), warms every batch of the feed, and hands the same state and feed
+to the window. The window issues steps until its time is up, then waits for
+the device: the documents of every step issued, over that time. After the
+window the reference repeats the first three steps.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
 import math
-import os
-import shutil
-import tempfile
 import time
 
 import numpy as np
 import torch
 
-from benchmark.harness import cli, counts, probe as probe_mod, traffic, vocab, weights
+from benchmark.harness import cli, counts, probe as probe_mod, traffic, weights
 
 CHECKED_STEPS = 3
 
@@ -52,266 +45,170 @@ def _shape(batch, train=True) -> counts.Shape:
                         s=batch.boxes.shape[1], train=train)
 
 
-def _samples(mix: dict, seed: int, n: int):
-    from vibertgrid_tpu_torch.data.dataset import Sample
-
+def _documents(mix: dict, seed: int, n: int) -> list:
+    """``(image, tokens, seg_ids, boxes, classes)`` of ``n`` documents."""
     images = traffic.page_images(mix, seed)
     out = []
     for d in traffic.documents(mix, seed, n):
         ids = np.concatenate(d.ids).astype(np.int32)
         seg_ids = np.repeat(np.arange(len(d.ids), dtype=np.int32), [len(x) for x in d.ids])
-        out.append(Sample(image=images[d.kind][d.image], tokens=ids, seg_ids=seg_ids,
-                          boxes=d.boxes, seg_classes=d.classes, texts=d.texts))
+        out.append((images[d.kind][d.image], ids, seg_ids, d.boxes, d.classes))
     return out
 
 
-def _write_pages(mix: dict, seed: int, n: int, root: str) -> None:
-    """``n`` pages in the SROIE layout: ``image/<name>.jpg`` and
-    ``label/<name>.csv`` (left, top, right, bot, text, data_class)."""
-    import csv
-
-    from PIL import Image
-
-    images = traffic.page_images(mix, seed)
-    os.makedirs(os.path.join(root, "image"), exist_ok=True)
-    os.makedirs(os.path.join(root, "label"), exist_ok=True)
-    jpgs = {}
-    for k, d in enumerate(traffic.documents(mix, seed, n)):
-        name = f"page{k:04d}"
-        key = (d.kind, d.image)
-        src = os.path.join(root, "image", name + ".jpg")
-        if key not in jpgs:
-            Image.fromarray((images[d.kind][d.image] * 255).round().astype(np.uint8)).save(
-                src, quality=90)
-            jpgs[key] = src
-        else:
-            shutil.copyfile(jpgs[key], src)
-        with open(os.path.join(root, "label", name + ".csv"), "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["left", "top", "right", "bot", "text", "data_class"])
-            for (x0, y0, x1, y1), text, c in zip(d.boxes, d.texts, d.classes):
-                w.writerow([int(x0), int(y0), int(x1), int(y1), text, int(c)])
-
-
-def _reachable(collator, mix: dict, batch: int):
-    """Every ``(canvas h, canvas w, segments, windows)`` a train batch of the
-    mix can collate to, by the collator's own bucket rules."""
-    from vibertgrid_tpu_torch.data.dataset import SEG_BUCKETS, WIN_BUCKETS, WINDOW
-    from vibertgrid_tpu_torch.data.transform import bucket_count, bucket_hw
-
-    tr = collator.transform
-    resized = sorted({tr._output_shape(*p["hw"], float(m)) for p in mix["pages"]
-                      for m in tr.train_min_size})
-    canvases = set()
-    for combo in itertools.combinations_with_replacement(resized, min(batch, len(resized))):
-        canvases.add(bucket_hw(max(h for h, _ in combo), max(w for _, w in combo),
-                               collator.hw_multiple))
-    seg = mix["segments"]
-    lo, hi = (seg["fixed"], seg["fixed"]) if "fixed" in seg else (seg["min"], seg["max"])
-    seg_caps = sorted({bucket_count(n, SEG_BUCKETS) for n in range(lo, hi + 1)})
-    w_lo, w_hi = mix["words_per_segment"]
-    t_hi = min(hi * w_hi, mix.get("max_tokens", hi * w_hi))
-    wins = sorted({bucket_count(-(-t // WINDOW), WIN_BUCKETS)
-                   for t in range(max(lo * w_lo, 1), t_hi + 1)})
-    return [(h, w, s, nw) for h, w in sorted(canvases) for s in seg_caps for nw in wins]
-
-
-def _synthetic_batch(b, h, w, s, nw, id_range, seed, device):
-    from vibertgrid_tpu_torch.models.vibertgrid import Batch
-
-    gen = torch.Generator(device=device).manual_seed(seed & 0xFFFFFFFF)
-    t = nw * 510
-    n_tok = min(t, (nw - 1) * 510 + 255)
-    token_mask = torch.zeros((b, t), dtype=torch.int32, device=device)
-    token_mask[:, :n_tok] = 1
-    seg_ids = (torch.arange(t, device=device) * s // n_tok).clamp(max=s - 1).to(torch.int32)
-    x0 = torch.randint(0, w // 2, (b, s), generator=gen, device=device)
-    y0 = torch.randint(0, h // 2, (b, s), generator=gen, device=device)
-    return Batch(
-        images=torch.randn((b, h, w, 3), generator=gen, device=device),
-        tokens=torch.randint(*id_range, (b, t), generator=gen, device=device,
-                             dtype=torch.int32) * token_mask,
-        token_mask=token_mask, seg_ids=seg_ids[None].expand(b, t).contiguous(),
-        boxes=torch.stack([x0, y0, x0 + 40, y0 + 11], -1).to(torch.int32),
-        box_mask=torch.ones((b, s), dtype=torch.bool, device=device),
-        seg_classes=torch.randint(0, 5, (b, s), generator=gen, device=device,
-                                  dtype=torch.int32))
-
-
 def run(ctx) -> list:
-    from vibertgrid_tpu_torch.data.dataset import KIEDataset, data_loader, prefetch_to_device
-    from vibertgrid_tpu_torch.train.driver import build_all, build_tokenizer
+    from vibertgrid_tpu_torch.data.dataset import Sample, prefetch_to_device
+    from vibertgrid_tpu_torch.train.driver import build_all
     from vibertgrid_tpu_torch.train.optim import make_optimizer
     from vibertgrid_tpu_torch.train.seeds import step_seeds
     from vibertgrid_tpu_torch.train.state import create_train_state, make_train_step
+
+    from benchmark.reference import train as ref
 
     cell, config, mix, probe = ctx.cell, ctx.config, ctx.mix, ctx.probe
     device, seed = ctx.device, ctx.seed
     knobs = cell["train"]
     hyp = dict(config["hyp"])
-    b = knobs["batch"]
-    pages_dir = None
-    if "token_ids" in mix:  # ids drawn over the vocabulary: no tokenizer
-        tokenizer = _Ids(*knobs["cls_sep"])
-        id_range = tuple(mix["token_ids"])
-    else:
-        size = mix.get("vocab_size", vocab.SIZE)
-        hyp["tokenizer_path"] = vocab.tokenizer_dir(size)
-        tokenizer = build_tokenizer(hyp)
-        id_range = (vocab.FIRST_WORD, size)
-    spec, cfg, model, transform, collator, _ = build_all(hyp, "sroie", tokenizer,
-                                                         device=device, seed=0)
+    b, niter = knobs["batch"], knobs["niter_per_ep"]
+    tokenizer = _Ids(*knobs["cls_sep"])  # ids drawn over the vocabulary: no tokenizer
+    _, _, model, _, collator, _ = build_all(hyp, "sroie", tokenizer, device=device, seed=0)
     ctx.shapes = weights.shapes_of(model)
     model.load_state_dict(weights.draw(ctx.shapes, seed, device), strict=True)
-    optimizer = make_optimizer(hyp, hyp["end_epoch"], knobs["niter_per_ep"],
-                               model.named_parameters())
+    optimizer = make_optimizer(hyp, hyp["end_epoch"], niter, model.named_parameters())
     state = create_train_state(model, optimizer)
     train_step = make_train_step()
     if ctx.faults is not None:
         train_step = ctx.faults("train", state=state, step=train_step)
 
-    if knobs["feed"] == "batches":
-        rng = np.random.default_rng([seed & 0xFFFFFFFFFFFFFFFF, 9])
-        samples = _samples(mix, seed, b * knobs["distinct_batches"])
-        collated = [collator(samples[i:i + b], train=True, rng=rng)
-                    for i in range(0, len(samples), b)]
-        source = itertools.cycle(collated)
-    else:
-        pages_dir = os.path.join(tempfile.gettempdir(), f"benchmark-pages-{ctx.name}")
-        shutil.rmtree(pages_dir, ignore_errors=True)
-        _write_pages(mix, seed, knobs["pages"], os.path.join(pages_dir, "train"))
-        dataset = KIEDataset(os.path.join(pages_dir, "train"), spec, tokenizer, train=True)
-        source = itertools.chain.from_iterable(
-            data_loader(dataset, collator, b, train=True, seed=seed + epoch,
-                        num_workers=hyp.get("num_workers", 0))
-            for epoch in itertools.count())
-    feed = prefetch_to_device(source, device)
+    rng = np.random.default_rng([seed & 0xFFFFFFFFFFFFFFFF, 9])
+    docs = _documents(mix, seed, b * knobs["distinct_batches"])
+    samples = [Sample(image=im, tokens=t, seg_ids=si, boxes=bx, seg_classes=c,
+                      texts=[""] * len(c)) for im, t, si, bx, c in docs]
+    collated = [collator(samples[i:i + b], train=True, rng=rng)
+                for i in range(0, len(samples), b)]
+    feed = prefetch_to_device(itertools.cycle(collated), device)
 
     def step(batch):
         nonlocal state
         state, loss = train_step(state, batch, step_seeds(seed, state.step))
         return loss
 
-    try:
-        # the first steps, through the window's own call and feed
-        params = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        first, losses = [], []
-        from benchmark.reference import train as ref
+    # the first steps, through the window's own call and feed; the clip's
+    # factor of each is read as the step applies it
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    first, losses = [], []
+    with ref.first_scores(model) as kept, _clip_factors() as factors:
+        for k in range(CHECKED_STEPS):
+            batch, _ = next(feed)
+            first.append({f.name: getattr(batch, f.name).cpu().numpy()
+                          for f in dataclasses.fields(batch)})
+            losses.append(step(batch))
+            if k == 0:
+                p0 = weights.draw(ctx.shapes, seed, device)
+                got = {"grads": ref.first_gradient_norms(
+                           {n: optimizer.state[p] for n, p in params.items()}, p0, hyp, niter),
+                       "first_changes": ref.change_norms(params, p0)}
+                del p0
+    got["scores"] = kept[0]
+    got["gnorm"] = ref.whole_norm(got["grads"]) / float(factors[0])
+    p0 = weights.draw(ctx.shapes, seed, device)
+    got["changes"] = ref.change_norms(params, p0)
+    del p0
+    got["losses"] = [float(x) for x in losses]
+    for _ in range(len(collated) - CHECKED_STEPS):  # warm-up: the feed's other batches
+        step(next(feed)[0])
+    for p in probe.spans.values():
+        p.clear()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    probe.setup_s = time.perf_counter() - ctx.t0
 
-        with ref.first_scores(model) as kept:
-            for k in range(CHECKED_STEPS):
+    with probe_mod.traced(probe, ctx.trace):
+        start = time.perf_counter()
+        while time.perf_counter() - start < ctx.seconds:
+            with probe.span("loader_wait"):
                 batch, _ = next(feed)
-                first.append({f.name: getattr(batch, f.name).cpu().numpy()
-                              for f in dataclasses.fields(batch)})
-                losses.append(step(batch))
-                if k == 0:
-                    p0 = weights.draw(ctx.shapes, seed, device)
-                    got_grads = ref.first_gradient_norms(
-                        {n: optimizer.state[p] for n, p in params.items()}, p0, hyp)
-                    del p0
-        got_scores = kept[0]
-        p0 = weights.draw(ctx.shapes, seed, device)
-        got_changes = ref.change_norms(params, p0)
-        del p0
-        got_losses = [float(x) for x in losses]
-        # warm-up: the rest of the fixed batches, or every shape the loader can reach
-        if knobs["feed"] == "batches":
-            for _ in range(len(collated) - CHECKED_STEPS):
-                step(next(feed)[0])
-        else:
-            for k, sig in enumerate(_reachable(collator, mix, b)):
-                step(_synthetic_batch(b, *sig, id_range, seed + k, device))
-            step(next(feed)[0])
-        for p in probe.spans.values():
-            p.clear()
+            probe.forwards.append((time.perf_counter(), _shape(batch)))
+            with probe.span("step"):
+                step(batch)
+            probe.steps += 1
+            probe.docs += batch.images.shape[0]
         if device.type == "cuda":
             torch.cuda.synchronize()
-        probe.setup_s = time.perf_counter() - ctx.t0
+        probe.window = (start, time.perf_counter())
+    if device.type == "cuda":
+        probe.memory_peak_bytes = torch.cuda.max_memory_allocated(device)
+    del state, model, optimizer, params
+    feed.close()
+    del feed, collated, samples
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return _check(ctx, _reference_batches(ctx, docs), first, got)
 
-        with probe_mod.traced(probe, ctx.trace):
-            start = time.perf_counter()
-            while time.perf_counter() - start < ctx.seconds:
-                with probe.span("loader_wait"):
-                    batch, _ = next(feed)
-                probe.forwards.append((time.perf_counter(), _shape(batch)))
-                with probe.span("step"):
-                    step(batch)
-                probe.steps += 1
-                probe.docs += batch.images.shape[0]
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            probe.window = (start, time.perf_counter())
-        if device.type == "cuda":
-            probe.memory_peak_bytes = torch.cuda.max_memory_allocated(device)
-        del state, model, optimizer, params
-        feed.close()
-        del feed, source
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        return _check(ctx, hyp, first, (tokenizer.cls_token_id, tokenizer.sep_token_id),
-                      got_losses, got_grads, got_changes, got_scores, pages_dir)
+
+@contextlib.contextmanager
+def _clip_factors():
+    """The factor of the conditional clip of each step (``train/state.py``'s
+    ``clip_scale``, wrapped from outside), in step order."""
+    from vibertgrid_tpu_torch.train import state as state_mod
+
+    factors, clip = [], state_mod.clip_scale
+
+    def kept(*args, **kwargs):
+        factors.append(clip(*args, **kwargs))
+        return factors[-1]
+
+    state_mod.clip_scale = kept
+    try:
+        yield factors
     finally:
-        if pages_dir is not None:
-            shutil.rmtree(pages_dir, ignore_errors=True)
+        state_mod.clip_scale = clip
 
 
-def _reference_batches(ctx, hyp, pages_dir) -> list:
-    """The first batches worked out again from the benchmark's own documents."""
+def _reference_batches(ctx, docs) -> list:
+    """The first batches worked out again from the benchmark's own documents
+    and the feed's generator."""
     from benchmark.reference import collate
-    from benchmark.reference.serve import Tokenizer
 
-    knobs, mix, seed = ctx.cell["train"], ctx.mix, ctx.seed
-    b = knobs["batch"]
-    if knobs["feed"] == "batches":
-        images = traffic.page_images(mix, seed)
-        rng = np.random.default_rng([seed & 0xFFFFFFFFFFFFFFFF, 9])
-        docs = []
-        for d in traffic.documents(mix, seed, b * knobs["distinct_batches"]):
-            docs.append((images[d.kind][d.image], np.concatenate(d.ids),
-                         np.repeat(np.arange(len(d.ids)), [len(x) for x in d.ids]), d.boxes,
-                         d.classes))
-        return [collate.batch(docs[i:i + b], hyp, rng)
-                for i in range(0, len(docs), b)][:CHECKED_STEPS]
-    tok = Tokenizer(os.path.join(hyp["tokenizer_path"], "vocab.txt"))
-    return collate.loader_batches(os.path.join(pages_dir, "train"), hyp, tok, seed, b,
-                                  CHECKED_STEPS)
+    b, rng = ctx.cell["train"]["batch"], np.random.default_rng([ctx.seed & 0xFFFFFFFFFFFFFFFF, 9])
+    return [collate.batch(docs[i:i + b], ctx.config["hyp"], rng)
+            for i in range(0, CHECKED_STEPS * b, b)]
 
 
-def _check(ctx, hyp, first, token_ids, got_losses, got_grads, got_changes, got_scores,
-           pages_dir) -> list:
+def _check(ctx, mine: list, first: list, got: dict) -> list:
     from benchmark.reference import collate
     from benchmark.reference import train as ref
-    from benchmark.reference.port.models.vibertgrid import Batch
 
-    mine = _reference_batches(ctx, hyp, pages_dir)
-    batch_mismatch = collate.mismatches(first, mine)
-    batches = [Batch(**{k: torch.from_numpy(v) for k, v in arrays.items()}) for arrays in mine]
-    args = (batches, ctx.seed, token_ids, ctx.cell["train"]["niter_per_ep"], ctx.device)
-    want = ref.run(hyp, weights.draw(ctx.shapes, ctx.seed, ctx.device), *args)
-    if ctx.control:  # the reference in fp8 (1) or bf16 (2) in the program's place
-        got = ref.run(hyp, weights.draw(ctx.shapes, ctx.seed, ctx.device), *args,
-                      control=ctx.control == 1, amp=ctx.control == 2)
-        got_losses, got_grads, got_changes = got["losses"], got["grads"], got["changes"]
-        got_scores = got["scores"]
+    cfg = {"model": ctx.config["model"], "hyp": ctx.config["hyp"],
+           "cls_sep": ctx.cell["train"]["cls_sep"]}
+    args = (cfg, weights.draw(ctx.shapes, ctx.seed, ctx.device), mine, ctx.seed,
+            ctx.cell["train"]["niter_per_ep"], ctx.device)
+    want = ref.run(*args)
+    if ctx.control:  # the reference in fp8, in the program's place
+        got = ref.run(*args, control=True)
     ordered = sorted(want["grads"].values())
     moved = {n for n, g in want["grads"].items() if g >= 1e-3 * ordered[len(ordered) // 2]}
     steps = [abs(g - w) / max(abs(w), 1e-30) if math.isfinite(g) else math.inf
-             for g, w in zip(got_losses, want["losses"])]
+             for g, w in zip(got["losses"], want["losses"])]
     numbers = {
-        "batch_mismatch": batch_mismatch,
-        "first_scores_gap": ref.scores_gap(got_scores, want["scores"],
-                                           gated=ctx.config["model"]["classifier_mode"] == "full"),
+        "batch_mismatch": collate.mismatches(first, mine),
+        "first_scores_gap": ref.scores_gap(got["scores"], want["scores"]),
         "first_loss_gap": steps[0],
         "loss_gap": max(steps),
-        "gradient_gap": ref.worst_leaf(got_grads, want["grads"]),
-        "change_gap": ref.worst_leaf(got_changes, want["changes"], keep=moved),
-        "median_gradient_gap": ref.median_leaf(got_grads, want["grads"]),
-        "median_change_gap": ref.median_leaf(got_changes, want["changes"], keep=moved),
+        "gradient_gap": ref.worst_leaf(got["grads"], want["grads"]),
+        "change_gap": ref.worst_leaf(got["changes"], want["changes"], keep=moved),
+        "whole_gradient_gap": abs(got["gnorm"] - want["gnorm"]) / want["gnorm"],
+        "whole_first_change_gap": ref.whole_gap(got["first_changes"], want["first_changes"],
+                                                keep=moved),
+        "median_gradient_gap": ref.median_leaf_by_group(got["grads"], want["grads"]),
+        "median_first_change_gap": ref.median_leaf_by_group(
+            got["first_changes"], want["first_changes"], keep=moved),
+        "median_change_gap": ref.median_leaf_by_group(got["changes"], want["changes"],
+                                                      keep=moved),
     }
     for name in ("gradient_gap", "change_gap"):  # (gap, leaf): the leaf goes to the notes
         numbers[name], ctx.notes[name + "_leaf"] = numbers[name]
-    ctx.notes.update(losses=got_losses, reference_losses=want["losses"],
+    ctx.notes.update(losses=got["losses"], reference_losses=want["losses"],
                      leaves_left_out=sorted(set(want["grads"]) - moved))
     return cli.compared(ctx, numbers)
-

@@ -1,27 +1,33 @@
-"""The plain reference of a training batch: what the port's loader and
-collator make of the documents, worked out again, so that a training cell
-can check the batches its steps received before it follows the steps.
+"""The plain reference of a training batch: what the port's collator makes of
+the documents, worked out again, so that a training cell can check the
+batches its steps received before it follows the steps.
 
-A page is resized by the plain bilinear resize (half-pixel grid, edge
-clamp), normalised and written into the top-left of a canvas whose sides are
-the batch's largest rounded up to a multiple of 64; each page draws its short
-side from the configuration's train sizes, serially from the loader's
-generator; boxes are rescaled; segments and tokens are padded to their
-buckets.
+Each page draws its short side from the configuration's train sizes (the
+long side at most ``image_max_size``), serially from the feed's generator;
+it is resized bilinearly (half-pixel grid, edge clamp: the row above and
+the row below each lerped across, then lerped down), normalised, and written
+into the top-left of a canvas whose sides are the batch's largest rounded up
+to a multiple of 64. Boxes are rescaled; segments and tokens are padded to
+their buckets.
 """
 
 from __future__ import annotations
 
-import csv
 import math
-import os
 
 import numpy as np
 
-from benchmark.reference.port.data.transform import resize_normalize_into
-from benchmark.reference.serve import SEG_BUCKETS, WIN_BUCKETS, WINDOW, HW_MULTIPLE, _bucket
-
 FIELDS = ("images", "tokens", "token_mask", "seg_ids", "boxes", "box_mask", "seg_classes")
+SEG_BUCKETS = (32, 64, 128, 256, 512)
+WIN_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16)
+WINDOW, HW_MULTIPLE = 510, 64
+
+
+def _bucket(n: int, ladder) -> int:
+    for b in ladder:
+        if n <= b:
+            return b
+    return int(math.ceil(n / ladder[-1]) * ladder[-1])
 
 
 def _output_shape(h, w, min_size, max_size):
@@ -29,6 +35,30 @@ def _output_shape(h, w, min_size, max_size):
     if max(h, w) * scale > max_size:
         scale = max_size / max(h, w)
     return int(math.floor(h * scale)), int(math.floor(w * scale))
+
+
+def _taps(out_n: int, in_n: int):
+    src = np.clip((np.arange(out_n, dtype=np.float64) + 0.5) * (in_n / out_n) - 0.5,
+                  0.0, in_n - 1)
+    lo = np.floor(src).astype(np.int64)
+    return lo, np.minimum(lo + 1, in_n - 1), (src - lo).astype(np.float32)
+
+
+def resize_normalize(image: np.ndarray, out_h: int, out_w: int, mean, std) -> np.ndarray:
+    """``image [H, W, C]`` float32 in [0, 1] → ``[out_h, out_w, C]``,
+    ``(value - mean)·(1/std)``, all in float32."""
+    image = np.asarray(image, np.float32)
+    mean = np.asarray(mean, np.float32)
+    inv_std = np.float32(1.0) / np.asarray(std, np.float32)
+    if image.shape[:2] == (out_h, out_w):
+        return (image - mean) * inv_std
+    ylo, yhi, fy = _taps(out_h, image.shape[0])
+    xlo, xhi, fx = _taps(out_w, image.shape[1])
+    fx = fx[None, :, None]
+    across = lambda rows: rows[:, xlo] * (np.float32(1) - fx) + rows[:, xhi] * fx
+    fy = fy[:, None, None]
+    down = across(image[ylo]) * (np.float32(1) - fy) + across(image[yhi]) * fy
+    return (down - mean) * inv_std
 
 
 def batch(docs: list, hyp: dict, rng: np.random.Generator) -> dict:
@@ -47,7 +77,8 @@ def batch(docs: list, hyp: dict, rng: np.random.Generator) -> dict:
            "seg_ids": np.zeros((b, t_cap), np.int32), "boxes": np.zeros((b, s_cap, 4), np.int32),
            "box_mask": np.zeros((b, s_cap), bool), "seg_classes": np.zeros((b, s_cap), np.int32)}
     for i, ((image, tokens, seg_ids, boxes, classes), (oh, ow)) in enumerate(zip(docs, hws)):
-        resize_normalize_into(image, out["images"][i], oh, ow, hyp["image_mean"], hyp["image_std"])
+        out["images"][i, :oh, :ow] = resize_normalize(image, oh, ow, hyp["image_mean"],
+                                                      hyp["image_std"])
         h, w = image.shape[:2]
         bx = np.asarray(boxes, np.float64).reshape(-1, 4).copy()
         bx[:, [0, 2]] *= ow / w
@@ -59,45 +90,6 @@ def batch(docs: list, hyp: dict, rng: np.random.Generator) -> dict:
         out["tokens"][i, :t] = tokens
         out["token_mask"][i, :t] = 1
         out["seg_ids"][i, :t] = seg_ids
-    return out
-
-
-def read_page(root: str, name: str, tok) -> tuple:
-    """A page as the SROIE reader takes it: the JPEG as floats in [0, 1], its
-    CSV rows' texts lowercased and tokenized (empty and untokenizable
-    segments skipped)."""
-    from PIL import Image
-
-    img = Image.open(os.path.join(root, "image", name + ".jpg")).convert("RGB")
-    image = np.asarray(img, np.float32) / 255.0
-    tokens, seg_ids, boxes, classes = [], [], [], []
-    with open(os.path.join(root, "label", name + ".csv"), newline="", encoding="utf-8") as f:
-        for row in csv.DictReader(f):
-            text = str(row["text"])
-            if not text or text.isspace():
-                continue
-            ids = tok.ids(text.lower())
-            if not ids:
-                continue
-            seg_ids += [len(classes)] * len(ids)
-            tokens += ids
-            boxes.append([int(float(row[k])) for k in ("left", "top", "right", "bot")])
-            classes.append(int(float(row["data_class"])))
-    return image, tokens, seg_ids, boxes, classes
-
-
-def loader_batches(root: str, hyp: dict, tok, seed: int, batch_size: int, n: int) -> list:
-    """The first ``n`` batches of a training epoch over the pages under
-    ``root``, in the loader's order: shuffled by ``default_rng(seed)``, whose
-    draws then pick each page's size."""
-    names = sorted(os.path.splitext(f)[0] for f in os.listdir(os.path.join(root, "label")))
-    rng = np.random.default_rng(seed)
-    order = np.arange(len(names))
-    rng.shuffle(order)
-    out = []
-    for k in range(n):
-        idx = order[k * batch_size:(k + 1) * batch_size]
-        out.append(batch([read_page(root, names[i], tok) for i in idx], hyp, rng))
     return out
 
 

@@ -17,7 +17,6 @@ window the reference repeats the first three steps.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import gc
 import itertools
@@ -93,11 +92,10 @@ def run(ctx) -> list:
         state, loss = train_step(state, batch, step_seeds(seed, state.step))
         return loss
 
-    # the first steps, through the window's own call and feed; the clip's
-    # factor of each is read as the step applies it
+    # the first steps, through the window's own call and feed
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
     first, losses = [], []
-    with ref.first_scores(model) as kept, _clip_factors() as factors:
+    with ref.first_scores(model) as kept:
         for k in range(CHECKED_STEPS):
             batch, _ = next(feed)
             first.append({f.name: getattr(batch, f.name).cpu().numpy()
@@ -105,12 +103,11 @@ def run(ctx) -> list:
             losses.append(step(batch))
             if k == 0:
                 p0 = weights.draw(ctx.shapes, seed, device)
-                got = {"grads": ref.first_gradient_norms(
+                got = {"gradients": ref.first_gradients(
                            {n: optimizer.state[p] for n, p in params.items()}, p0, hyp, niter),
                        "first_changes": ref.change_norms(params, p0)}
                 del p0
     got["scores"] = kept[0]
-    got["gnorm"] = ref.whole_norm(got["grads"]) / float(factors[0])
     p0 = weights.draw(ctx.shapes, seed, device)
     got["changes"] = ref.change_norms(params, p0)
     del p0
@@ -147,25 +144,6 @@ def run(ctx) -> list:
     return _check(ctx, _reference_batches(ctx, docs), first, got)
 
 
-@contextlib.contextmanager
-def _clip_factors():
-    """The factor of the conditional clip of each step (``train/state.py``'s
-    ``clip_scale``, wrapped from outside), in step order."""
-    from vibertgrid_tpu_torch.train import state as state_mod
-
-    factors, clip = [], state_mod.clip_scale
-
-    def kept(*args, **kwargs):
-        factors.append(clip(*args, **kwargs))
-        return factors[-1]
-
-    state_mod.clip_scale = kept
-    try:
-        yield factors
-    finally:
-        state_mod.clip_scale = clip
-
-
 def _reference_batches(ctx, docs) -> list:
     """The first batches worked out again from the benchmark's own documents
     and the feed's generator."""
@@ -187,6 +165,8 @@ def _check(ctx, mine: list, first: list, got: dict) -> list:
     want = ref.run(*args)
     if ctx.control:  # the reference in fp8, in the program's place
         got = ref.run(*args, control=True)
+    for side in (got, want):
+        side["grads"] = ref.norms(side["gradients"])
     ordered = sorted(want["grads"].values())
     moved = {n for n, g in want["grads"].items() if g >= 1e-3 * ordered[len(ordered) // 2]}
     steps = [abs(g - w) / max(abs(w), 1e-30) if math.isfinite(g) else math.inf
@@ -198,10 +178,9 @@ def _check(ctx, mine: list, first: list, got: dict) -> list:
         "loss_gap": max(steps),
         "gradient_gap": ref.worst_leaf(got["grads"], want["grads"]),
         "change_gap": ref.worst_leaf(got["changes"], want["changes"], keep=moved),
-        "whole_gradient_gap": abs(got["gnorm"] - want["gnorm"]) / want["gnorm"],
-        "whole_first_change_gap": ref.whole_gap(got["first_changes"], want["first_changes"],
-                                                keep=moved),
         "median_gradient_gap": ref.median_leaf_by_group(got["grads"], want["grads"]),
+        "median_gradient_difference": ref.median_difference_by_group(
+            got["gradients"], want["gradients"], keep=moved),
         "median_first_change_gap": ref.median_leaf_by_group(
             got["first_changes"], want["first_changes"], keep=moved),
         "median_change_gap": ref.median_leaf_by_group(got["changes"], want["changes"],

@@ -3,7 +3,7 @@ model's definition (arXiv:2105.11672 and its reference implementation's
 layers) in plain PyTorch, fp32: functions over a dict of leaf tensors named
 as the checkpoint both sides load, with no module of the port.
 
-    tokens ─ windowed RoBERTa/BERT ─ segment mean ─┐
+    tokens ─ windowed RoBERTa ─ segment mean ──────┐
                                                    ├─ BERTgrid ─ early-fused
     image ─────────────────────────────────────────┘   ResNet-FPN ─ P_fuse
     P_fuse ─ RoIAlign ─ late fusion with the segment embeddings ─ field head
@@ -17,7 +17,9 @@ What both sides take from the configuration rather than from each other:
   state is its row-major flat index, that of an attention probability
   ``row·Tp + col`` (``Tp`` = the window length rounded up to 128) under the
   seed ``seed + window·H + head``. The seeds of a step come from
-  :func:`step_seeds`, in the order the module's sites are listed there;
+  :func:`step_seeds` in call order: the embeddings; each layer's attention
+  probabilities, attention output and FFN output; the segmentation head's
+  sample and one a class; the field head's sample and one a class;
 - a random subsample of ``k`` elements of a category keeps the ``k``
   largest ``splitmix32(flat index, seed)`` among its members;
 - online hard example mining (OHEM) sums the ``k`` largest losses of each
@@ -41,7 +43,6 @@ WINDOW = 510          # tokens of a window between its <s>/[CLS] and </s>/[SEP]
 DROPOUT = 0.1         # hidden and attention dropout of BERT-base and RoBERTa-base
 LN_EPS = 1e-12        # the encoder's LayerNorm epsilon, BERT's published value
 BN_EPS = 1e-5
-SEEDS_PER_STEP_HEADS = 5  # per head of the two-stage design: the sample, then one a class
 
 
 # ------------------------------------------------------------------ the seeds
@@ -146,15 +147,13 @@ def _ln(P, name, x, eps):
     return F.layer_norm(x, x.shape[-1:], P[name + ".weight"], P[name + ".bias"], eps)
 
 
-def encoder(P, ids, amask, seeds, heads: int, roberta: bool):
-    """``[N, T]`` framed windows → ``[N, T, D]``, training (dropout on)."""
+def encoder(P, ids, amask, seeds, heads: int):
+    """RoBERTa over ``[N, T]`` framed windows → ``[N, T, D]``, training
+    (dropout on)."""
     e = "bert_model."
     n, t = ids.shape
-    if roberta:  # positions count from the padding id + 1; the padding id is 1
-        not_pad = (ids != 1).long()
-        pos = torch.cumsum(not_pad, 1) * not_pad + 1
-    else:
-        pos = torch.arange(t, device=ids.device)[None].expand(n, t)
+    not_pad = (ids != 1).long()  # positions count from the padding id (1) + 1
+    pos = torch.cumsum(not_pad, 1) * not_pad + 1
     x = (F.embedding(ids.long(), P[e + "word_embeddings.weight"])
          + F.embedding(pos, P[e + "position_embeddings.weight"])
          + P[e + "token_type_embeddings.weight"][0])
@@ -404,11 +403,12 @@ def forward(P, batch: dict, seeds, cfg: dict):
     ``batch``: the collated arrays as tensors; ``cfg``: the configuration
     file's ``model`` and ``hyp`` with the cell's ``cls_sep`` ids."""
     model, hyp = cfg["model"], cfg["hyp"]
+    if "roberta" not in hyp["bert_version"] or hyp["classifier_mode"] != "full":
+        raise ValueError("the reference follows RoBERTa with the two-stage head")
     b, hh, ww, _ = batch["images"].shape
     s = batch["boxes"].shape[1]
     ids, amask = frame(batch["tokens"], batch["token_mask"], *cfg["cls_sep"])
-    roberta = hyp["bert_version"].startswith(("roberta", "tiny-roberta"))
-    tok = encoder(P, ids, amask, seeds, model["num_attention_heads"], roberta)
+    tok = encoder(P, ids, amask, seeds, model["num_attention_heads"])
     tok = tok[:, 1:-1].reshape(b, -1, tok.shape[-1])
     seg = segment_mean(tok, batch["seg_ids"], batch["token_mask"], s)
     stride = hyp["early_fusion_downsampling_ratio"]

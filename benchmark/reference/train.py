@@ -8,12 +8,11 @@ with TF32 off, its backward by autograd, the clip when the loss spikes
 above it) and the dual optimizer of the configuration (SGD with momentum
 and coupled weight decay on the CNN side, AdamW on the encoder) with fp32
 state. It reports the class scores of the first forward, each step's loss,
-each leaf's norm of the first gradient as the optimizer gets it (after the
-clip), the norm of the whole first gradient before the clip, and each leaf's
-norm of the change after the first step and after the last.
+each leaf's first gradient as the optimizer gets it (after the clip), and
+each leaf's norm of the change after the first step and after the last.
 
 The program's side of the same numbers is read from its own state:
-:func:`first_gradient_norms` works the first gradient out of its optimizer's
+:func:`first_gradients` works the first gradient out of its optimizer's
 slots after one step, :func:`change_norms` the change from its parameters.
 """
 
@@ -60,11 +59,12 @@ def weight_decay(hyp: dict, group: str, step: int, niter_per_ep: int) -> float:
     return _f32(final + 0.5 * (base - final) * (1 + math.cos(math.pi * step / total)))
 
 
-def first_gradient_norms(states: dict, p0: dict, hyp: dict, niter_per_ep: int) -> dict:
-    """``{name: norm}`` of the program's first gradient as its optimizer got
-    it, from the optimizer's state after one update (``states``: name ->
-    that leaf's slots): SGD's momentum buffer is then ``g + wd·p0`` (the
-    decay is coupled), AdamW's first moment ``(1 - beta1)·g``."""
+def first_gradients(states: dict, p0: dict, hyp: dict, niter_per_ep: int) -> dict:
+    """``{name: fp32 host tensor}``: the program's first gradient as its
+    optimizer got it, from the optimizer's state after one update
+    (``states``: name -> that leaf's slots): SGD's momentum buffer is then
+    ``g + wd·p0`` (the decay is coupled), AdamW's first moment
+    ``(1 - beta1)·g``."""
     wd = weight_decay(hyp, "cnn", 0, niter_per_ep)
     beta1 = hyp["optimizer_bert_hyp"].get("beta1", 0.9)
     out = {}
@@ -74,8 +74,12 @@ def first_gradient_norms(states: dict, p0: dict, hyp: dict, niter_per_ep: int) -
                 g = st["momentum"].double() - wd * p0[name].double()
             else:
                 g = st["mu"].double() / (1.0 - beta1)
-            out[name] = float(torch.linalg.vector_norm(g))
+            out[name] = g.float().cpu()
     return out
+
+
+def norms(tensors: dict) -> dict:
+    return {n: float(torch.linalg.vector_norm(t.double())) for n, t in tensors.items()}
 
 
 def change_norms(params: dict, p0: dict) -> dict:
@@ -97,7 +101,7 @@ def run(cfg: dict, weights: dict, batches: list, seed: int, niter_per_ep: int, d
               for n, w in weights.items() if not n.endswith(("running_mean", "running_var"))}
     p0 = {n: p.detach().clone() for n, p in params.items()}
     slots: dict = {}
-    losses, grads, scores, first_changes, first_gnorm = [], None, None, None, None
+    losses, grads, scores, first_changes = [], None, None, None
     b1 = hyp["optimizer_bert_hyp"].get("beta1", 0.9)
     b2 = hyp["optimizer_bert_hyp"].get("beta2", 0.999)
     eps = hyp["optimizer_bert_hyp"].get("epsilon", 1e-8)
@@ -131,13 +135,12 @@ def run(cfg: dict, weights: dict, batches: list, seed: int, niter_per_ep: int, d
                         torch.sqrt(st["nu"] / (1 - b2 ** (k + 1))) + eps)
                     p.sub_(lr[grp] * (u + wd[grp] * p))
         if k == 0:
-            grads = {n: float(torch.linalg.vector_norm(g[n].double() * scale)) for n in g}
-            first_gnorm = gnorm
+            grads = {n: (g[n] * scale).float().cpu() for n in g}
             scores = (out.detach().float().cpu().numpy(), np.asarray(arrays["box_mask"]))
             first_changes = change_norms(params, p0)
         del g
-    return {"losses": losses, "grads": grads, "changes": change_norms(params, p0),
-            "first_changes": first_changes, "scores": scores, "gnorm": first_gnorm}
+    return {"losses": losses, "gradients": grads, "changes": change_norms(params, p0),
+            "first_changes": first_changes, "scores": scores}
 
 
 @contextlib.contextmanager
@@ -196,18 +199,17 @@ def median_leaf_by_group(got: dict, want: dict, keep=None) -> float:
                for grp in GROUPS)
 
 
-def whole_norm(norms: dict) -> float:
-    """The norm of every leaf's together, from the leaves' norms."""
-    return math.sqrt(sum(v * v for v in norms.values()))
-
-
-def whole_gap(got: dict, want: dict, keep=None) -> float:
-    """The gap between the norms of the whole (every leaf's together),
-    against the reference's."""
-    names = [n for n in want if keep is None or n in keep]
-    a = math.sqrt(sum(got[n] ** 2 for n in names))
-    b = math.sqrt(sum(want[n] ** 2 for n in names))
-    return abs(a - b) / max(b, 1e-30)
+def median_difference_by_group(got: dict, want: dict, keep=None) -> float:
+    """Within each optimizer group, the median over the leaves of
+    ``|got - want| / |want|`` (tensors, whole-leaf norms); the larger of the
+    two groups."""
+    gaps = {grp: [] for grp in GROUPS}
+    for n in want:
+        if keep is None or n in keep:
+            w = want[n].double()
+            gaps[group_of(n)].append(float(torch.linalg.vector_norm(got[n].double() - w)
+                                           / torch.linalg.vector_norm(w).clamp(min=1e-30)))
+    return max(sorted(v)[len(v) // 2] for v in gaps.values() if v)
 
 
 def worst_leaf(got: dict, want: dict, keep=None) -> tuple[float, str]:

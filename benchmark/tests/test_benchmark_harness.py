@@ -7,6 +7,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 
 import numpy as np
 import pytest
@@ -14,6 +15,10 @@ import pytest
 from benchmark.harness import cli, traffic
 
 CELL = "train-roberta-r18d-b16"
+LIMITS = json.load(open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                     "workloads", CELL + ".json")))["limits"]
+# the cell's numbers, with limits for fp32 on both sides (the card's are for bf16)
+FP32_LIMITS = {name: 0 if limit == 0 else 5e-3 for name, limit in LIMITS.items()}
 TINY = {
     "hyp": {"bert_version": "tiny-roberta-test", "backbone": "resnet_18_D_fpn", "amp": False,
             "image_min_size": [128, 160], "test_image_min_size": 128, "image_max_size": 224,
@@ -28,7 +33,7 @@ TINY = {
             "segments": {"fixed": 16}, "max_tokens": 510, "token_ids": [3, 512],
             "image_pool": 2},
     "cell": {"train": {"batch": 4, "distinct_batches": 4, "niter_per_ep": 39,
-                       "cls_sep": [0, 2]}},
+                       "cls_sep": [0, 2]}, "limits": FP32_LIMITS},
 }
 SEED = 2**33 + 12345  # above 32 bits, as the driver's are
 
@@ -66,10 +71,13 @@ def test_the_reference_follows_the_program_in_fp32(sound):
     for got, want in zip(notes["losses"], notes["reference_losses"]):
         assert got == pytest.approx(want, rel=1e-4)
     assert result["compared"]["batch_mismatch"]["value"] == 0
-    for name in ("first_scores_gap", "whole_gradient_gap", "median_gradient_gap",
-                 "median_change_gap"):
-        value = result["compared"].get(name, {}).get("value", notes.get(name))
-        assert value < 1e-3, (name, value)
+    compared = {k: v["value"] for k, v in result["compared"].items()}
+    assert compared["first_scores_gap"] < 1e-4
+    assert compared["median_gradient_gap"] < 1e-3
+    assert compared["median_first_change_gap"] < 1e-3
+    # the program keeps its optimizer's state in bf16: its gradient, worked
+    # out from that state, carries bf16's rounding
+    assert compared["median_gradient_difference"] < 5e-3
 
 
 def test_traffic_repeats_under_a_seed_and_differs_across_seeds():

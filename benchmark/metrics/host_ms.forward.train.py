@@ -1,0 +1,7 @@
+"""Mean host milliseconds a train step of the program's ``forward`` range."""
+
+from benchmark.metrics import _spans
+
+
+def read(probe):
+    return _spans.per_step("forward")

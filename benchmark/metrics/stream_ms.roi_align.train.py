@@ -1,0 +1,8 @@
+"""Mean milliseconds a train step between the ``roi_align`` range's start and
+end events on the card's stream."""
+
+from benchmark.metrics import _spans
+
+
+def read(probe):
+    return _spans.per_step("roi_align", device=True)

@@ -6,7 +6,6 @@
     python3 chip_smoke.py --only serve      # build, then serving steps 1-5 alone
     python3 chip_smoke.py --only driver     # build, then step 9 alone
     python3 chip_smoke.py --only determinism [--tree DIR]  # build, then step 4's pin, diagnosed
-    python3 chip_smoke.py --only bench      # build, then bench.py's line (steps 3, 4 and two windows)
     python3 chip_smoke.py --only distributed  # build, then step 10 alone
     python3 chip_smoke.py --only tp         # build, then step 10 (5) alone
     python3 chip_smoke.py --only nccl       # two cards: step 10 (3) and (5)'s step on NCCL
@@ -45,9 +44,6 @@
    trajectories of 8 steps the same losses and parameters, and the port's
    embedding lookup the same gradient in four runs for an id repeated over a
    whole batch (the library's ``F.embedding``, printed beside it, does not);
-   prints one JSON line with ``bench.py``'s keys (forward docs/s at batch
-   16, the same with two windows a document, train docs/s and ms a step;
-   no ``vs_baseline``, which divides by a TPU number);
 5. drives the full-head model on the encoder with the fused attention
    epilogue at the same width, depth and shapes: the inference forward
    (launches: attention 12, epilogue 12, FFN 12, scatter 1) and the train step
@@ -168,10 +164,8 @@ host of two cards or more); ``--only determinism`` step 4's pin, and one
 step under ``torch.use_deterministic_algorithms(True, warn_only=True)``
 that prints the ops the library has no deterministic path for (with
 ``--tree DIR`` another checkout's package, its results printed and not
-held: the parent of the repair shows the fault); ``--only
-bench`` prints ``bench.py``'s line from steps 3 and 4 and the two-window
-forward, for comparing trees. ``--only
-attention`` does the same for the two attention kernels alone, through the
+held: the parent of the repair shows the fault). ``--only attention``
+times the two attention kernels alone, for comparing trees, through the
 package's public ``flash_attention`` only, so ``--tree DIR`` can point this
 script at another checkout's package (an earlier commit unpacked under a
 directory that ``.gitignore`` lists) and time both with one clock; ``--only
@@ -941,7 +935,6 @@ def flagship_forward(dev, records):
     print(f"evaluation forward under autograd vs under no_grad: max |diff| {err:.3e}")
     if not (pred_grad.requires_grad and err <= 2 ** -8):  # bf16 logits, probabilities <= 1
         raise AssertionError(f"forward under autograd differs from the one under no_grad: {err}")
-    return B / dt, dt
 
 
 TRAIN_LAUNCHES = dict(flash_attention=12, flash_attention_bwd=12, fused_ffn=0, fused_ffn_saved=12,
@@ -1008,8 +1001,7 @@ def train_phase(dev, records, config, what, want, watch=(), iters: int = 5, tabl
 def flagship_train(dev, records):
     from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN
 
-    dt, _ = train_phase(dev, records, FLAGSHIP_TRAIN, "flagship train step", TRAIN_LAUNCHES)
-    return B / dt, dt
+    train_phase(dev, records, FLAGSHIP_TRAIN, "flagship train step", TRAIN_LAUNCHES)
 
 
 DETERMINISM_STEPS = 8
@@ -1109,32 +1101,6 @@ def determinism(dev, tree: str = HERE, probe: bool = False):
         print(f"under use_deterministic_algorithms(warn_only): {len(names)} ops without a "
               f"deterministic path: {names}")
     torch.cuda.empty_cache()
-
-
-def two_window_forward(dev) -> float:
-    """bench.py's second row: the flagship forward at batch 16 with two
-    510-token windows a document (T = 1020, folded into the encoder's batch);
-    docs/s on the host clock."""
-    from vibertgrid_tpu_torch.entry import FLAGSHIP, make_batch
-    from vibertgrid_tpu_torch.models import ViBERTgridNet
-
-    model = ViBERTgridNet(FLAGSHIP, device=dev).eval()
-    batch = make_batch(B, H, W, 2 * T, S, VOCAB, seed=0, device=dev)
-    dt = _timed_forward(model, batch, "flagship forward, two windows")
-    del model, batch
-    torch.cuda.empty_cache()
-    return B / dt
-
-
-def bench_line(forward, train, two_window) -> None:
-    """One JSON line with bench.py's keys, measured here (no vs_baseline:
-    bench.py's divides by a TPU number)."""
-    print(json.dumps({
-        "metric": "docs/sec/chip joint CNN+BERT forward (SROIE 512x384, bs16)",
-        "value": round(forward[0], 2), "unit": "docs/sec/chip",
-        "value_2win": round(two_window, 2), "train_docs_per_sec": round(train[0], 2),
-        "train_ms_per_batch": round(train[1] * 1e3, 2),
-        "device": torch.cuda.get_device_name(0)}))
 
 
 def full_fused_forward(dev, records):
@@ -3394,7 +3360,7 @@ def main(argv) -> int:
     if len(argv) == 4 and argv[:2] in kernel_modes and argv[2] == "--tree":
         tree, argv = os.path.abspath(argv[3]), argv[:2]
     rank_mode = len(argv) == 3 and argv[0] == "--rank" and argv[1] in RANK_PARTS
-    phases = ("flagship", "bench", "host_ops", "serve", "driver", "distributed", "tp", "nccl")
+    phases = ("flagship", "host_ops", "serve", "driver", "distributed", "tp", "nccl")
     if not rank_mode and argv not in ([], *(["--only", m] for m in phases), *kernel_modes):
         print(f"usage: python3 chip_smoke.py [--only {' | --only '.join(phases)} | "
               f"--only {'|'.join((*KERNEL_MODES, 'determinism'))} [--tree DIR]]",
@@ -3455,10 +3421,6 @@ def main(argv) -> int:
         tp_phase(dev, [])
         print(smi)
         return 0
-    if argv == ["--only", "bench"]:  # bench.py's line, for comparing trees
-        bench_line(flagship_forward(dev, []), flagship_train(dev, []), two_window_forward(dev))
-        print(smi)
-        return 0
     if argv:  # the two end-to-end numbers of the flagship, for comparing trees
         flagship_forward(dev, [])
         flagship_train(dev, [])
@@ -3474,10 +3436,9 @@ def main(argv) -> int:
     records = [check(dev) for check in (
         check_attention, check_attention_bwd, check_ffn, check_ffn_saved, check_proj_ln,
         check_scatter, check_scatter_bwd)]
-    forward = flagship_forward(dev, records)
-    train = flagship_train(dev, records)
+    flagship_forward(dev, records)
+    flagship_train(dev, records)
     determinism(dev)
-    bench_line(forward, train, two_window_forward(dev))
     full_fused_forward(dev, records)
     full_fused_train(dev, records)
     crf_fused(dev, records)

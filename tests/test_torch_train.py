@@ -339,20 +339,3 @@ def test_profiling_trace_writes_a_trace_file(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("linear" in e.get("name", "") or "addmm" in e.get("name", "") for e in events)
 
-
-def test_profiling_step_timer_ticks():
-    from vibertgrid_tpu_torch.utils.profiling import step_timer
-
-    timer = step_timer()
-    assert timer.mean == 0.0
-    dts = [timer.tick(torch.ones(3) * 2), timer.tick(), timer.tick(torch.tensor(1.0))]
-    assert timer.history == dts and all(dt >= 0 for dt in dts)
-    assert timer.mean == pytest.approx(sum(dts) / 3)
-
-
-def test_profiling_flops_of_a_linear_is_2mnk():
-    from vibertgrid_tpu_torch.utils.profiling import flops_estimate
-
-    m, n, k = 8, 32, 16
-    got = flops_estimate(torch.nn.functional.linear, torch.randn(m, k), torch.randn(n, k))
-    assert got == {"flops": 2 * m * n * k}

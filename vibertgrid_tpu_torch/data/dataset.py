@@ -39,6 +39,7 @@ from vibertgrid_tpu_torch.data.transform import (
 from vibertgrid_tpu_torch.data.spec import DatasetSpec
 from vibertgrid_tpu_torch.device import resolve_device
 from vibertgrid_tpu_torch.models.vibertgrid import Batch
+from vibertgrid_tpu_torch.utils.profiling import span
 
 SEG_BUCKETS = (32, 64, 128, 256, 512)
 WIN_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16)
@@ -408,7 +409,10 @@ def prefetch_to_device(iterator: Iterator, device="cuda", size: int = 2) -> Iter
     overlaps host work.
 
     An early ``break`` (or closing the generator) stops the thread; an
-    exception in the loader is raised in the consumer."""
+    exception in the loader is raised in the consumer. Under a profiler the
+    producer records an ``upload`` range a batch (pinning and copies, on the
+    side stream) and the consumer a ``loader_wait`` range (the queue and the
+    wait on the copies; :mod:`vibertgrid_tpu_torch.utils.profiling`)."""
     dev = resolve_device(device)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     q: queue.Queue = queue.Queue(maxsize=size)
@@ -429,8 +433,9 @@ def prefetch_to_device(iterator: Iterator, device="cuda", size: int = 2) -> Iter
         moved = lambda: Batch(**{f.name: to_device(getattr(batch, f.name), dev)
                                  for f in dataclasses.fields(batch)})
         if side is None:
-            return moved(), None
-        with torch.cuda.stream(side):
+            with span("upload"):
+                return moved(), None
+        with torch.cuda.stream(side), span("upload"):
             out = moved()
             event = torch.cuda.Event()
             event.record(side)
@@ -454,16 +459,17 @@ def prefetch_to_device(iterator: Iterator, device="cuda", size: int = 2) -> Iter
     thread.start()
     try:
         while True:
-            batch, event_or_exc, *aux = q.get()
+            with span("loader_wait"):
+                batch, event_or_exc, *aux = q.get()
+                if batch is not _DONE and event_or_exc is not None:
+                    stream = torch.cuda.current_stream(dev)
+                    stream.wait_event(event_or_exc)
+                    for f in dataclasses.fields(batch):
+                        getattr(batch, f.name).record_stream(stream)
             if batch is _DONE:
                 if event_or_exc is not None:
                     raise event_or_exc
                 return
-            if event_or_exc is not None:
-                stream = torch.cuda.current_stream(dev)
-                stream.wait_event(event_or_exc)
-                for f in dataclasses.fields(batch):
-                    getattr(batch, f.name).record_stream(stream)
             yield batch, aux[0]
     finally:
         stop.set()

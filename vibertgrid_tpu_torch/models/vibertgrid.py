@@ -43,6 +43,7 @@ from vibertgrid_tpu_torch.ops.segments import aggregate_token_embeddings
 from vibertgrid_tpu_torch.ops.windows import frame_windows, unframe_windows
 from vibertgrid_tpu_torch.parallel.collectives import all_max
 from vibertgrid_tpu_torch.parallel.sharding import apply_shardings
+from vibertgrid_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -197,7 +198,12 @@ class ViBERTgridNet(nn.Module):
     An evaluation forward works with autograd recording or under
     ``torch.no_grad()``, with the same values; only the latter takes the
     residual-free FFN kernel and keeps no activations, so inference callers
-    (``entry()``'s ``forward`` does) run it under ``torch.no_grad()``."""
+    (``entry()``'s ``forward`` does) run it under ``torch.no_grad()``.
+
+    Under a profiler the forward records its ranges in code order
+    (``forward``, enclosing ``encoder``, ``backbone``, ``heads`` with the
+    segmentation head, ``roi_align``, ``heads`` with the field-type head;
+    :mod:`vibertgrid_tpu_torch.utils.profiling`)."""
 
     def __init__(self, config: ModelConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
@@ -273,61 +279,68 @@ class ViBERTgridNet(nn.Module):
         if h % 32 or w % 32:
             raise ValueError(f"image bucket {h}x{w} must be a multiple of 32")
 
-        # seq_len = the batch-max valid token count: where each window's
-        # [SEP] lands, as the reference frames its padded corpus (the
-        # global batch's in a data-parallel step).
-        seq_len = all_max(batch.token_mask.to(torch.int32).sum(dim=1).max())
-        ids, amask = frame_windows(
-            batch.tokens, batch.token_mask, cls_id=cfg.cls_token_id,
-            sep_id=cfg.sep_token_id, seq_len=seq_len,
-        )
-        tok_emb = unframe_windows(
-            self.bert_model(ids, amask, deterministic=not train, seeds=seeds), batch_size=b
-        )  # [B, T, D]
-        seg_emb = aggregate_token_embeddings(
-            tok_emb.float(), batch.seg_ids, batch.token_mask,
-            num_segments=s, mode=cfg.grid_mode,
-        )  # [B, S, D] fp32
-        grid = grid_scatter(
-            seg_emb.to(dt), batch.boxes, batch.box_mask,
-            height=h // gs, width=w // gs, stride=gs,
-        )  # [B, H/gs, W/gs, D]
-        p_fuse = self.backbone(batch.images, grid, train)  # [B, H/4, W/4, 256]
+        with span("forward"):
+            with span("encoder"):
+                # seq_len = the batch-max valid token count: where each window's
+                # [SEP] lands, as the reference frames its padded corpus (the
+                # global batch's in a data-parallel step).
+                seq_len = all_max(batch.token_mask.to(torch.int32).sum(dim=1).max())
+                ids, amask = frame_windows(
+                    batch.tokens, batch.token_mask, cls_id=cfg.cls_token_id,
+                    sep_id=cfg.sep_token_id, seq_len=seq_len,
+                )
+                tok_emb = unframe_windows(
+                    self.bert_model(ids, amask, deterministic=not train, seeds=seeds),
+                    batch_size=b,
+                )  # [B, T, D]
+                seg_emb = aggregate_token_embeddings(
+                    tok_emb.float(), batch.seg_ids, batch.token_mask,
+                    num_segments=s, mode=cfg.grid_mode,
+                )  # [B, S, D] fp32
+            with span("backbone"):
+                grid = grid_scatter(
+                    seg_emb.to(dt), batch.boxes, batch.box_mask,
+                    height=h // gs, width=w // gs, stride=gs,
+                )  # [B, H/gs, W/gs, D]
+                p_fuse = self.backbone(batch.images, grid, train)  # [B, H/4, W/4, 256]
 
-        # Seeds of the sampled losses, in the order train/seeds.py documents:
-        # 2 for the simplified heads, one per class for the two-stage ones.
-        n_seeds = 2 if cfg.classifier_mode == "simp" else cfg.num_tokens
-        draw = lambda: [0 if seeds is None else seeds.next() for _ in range(n_seeds)]
-        loss_aux = pred_mask = pred_ss = None
-        if compute_loss:
-            loss_aux, pred_mask, pred_ss = self.semantic_segmentation_head(
-                p_fuse, batch.seg_classes, batch.boxes, batch.box_mask,
-                train=train, seeds=draw(),
-            )
-        rois = roi_align(
-            p_fuse, batch.boxes.float(), batch.box_mask,
-            output_size=cfg.roi_shape, spatial_scale=1.0 / cfg.p_fuse_downsampling_ratio,
-        )  # [B, S, 7, 7, 256]
-        rois_flat = rois.reshape(b * s, cfg.roi_shape, cfg.roi_shape, -1)
-        valid_flat = batch.box_mask.reshape(b * s)
-        fuse = self.late_fusion(
-            rois_flat, seg_emb.reshape(b * s, -1), valid_flat, train
-        )  # [B·S, 1024]
-        if cfg.classifier_mode == "crf":
-            loss_c, pred_label = self.field_type_head(
-                fuse.reshape(b, s, -1), batch.seg_classes,
-                batch.box_mask.to(torch.int32).sum(dim=1),
-                train=train, compute_loss=compute_loss,
-            )
-        else:
-            loss_c, pred = self.field_type_head(
-                fuse, batch.seg_classes.reshape(b * s), valid_flat,
-                compute_loss=compute_loss, seeds=draw() if compute_loss else None,
-            )
-            pred_label = pred.reshape(b, s, -1)
-        total_loss = None
-        if compute_loss:
-            total_loss = loss_c + cfg.loss_control_lambda * loss_aux
+            # Seeds of the sampled losses, in the order train/seeds.py documents:
+            # 2 for the simplified heads, one per class for the two-stage ones.
+            n_seeds = 2 if cfg.classifier_mode == "simp" else cfg.num_tokens
+            draw = lambda: [0 if seeds is None else seeds.next() for _ in range(n_seeds)]
+            loss_aux = pred_mask = pred_ss = None
+            if compute_loss:
+                with span("heads"):
+                    loss_aux, pred_mask, pred_ss = self.semantic_segmentation_head(
+                        p_fuse, batch.seg_classes, batch.boxes, batch.box_mask,
+                        train=train, seeds=draw(),
+                    )
+            with span("roi_align"):
+                rois = roi_align(
+                    p_fuse, batch.boxes.float(), batch.box_mask,
+                    output_size=cfg.roi_shape, spatial_scale=1.0 / cfg.p_fuse_downsampling_ratio,
+                )  # [B, S, 7, 7, 256]
+            with span("heads"):
+                rois_flat = rois.reshape(b * s, cfg.roi_shape, cfg.roi_shape, -1)
+                valid_flat = batch.box_mask.reshape(b * s)
+                fuse = self.late_fusion(
+                    rois_flat, seg_emb.reshape(b * s, -1), valid_flat, train
+                )  # [B·S, 1024]
+                if cfg.classifier_mode == "crf":
+                    loss_c, pred_label = self.field_type_head(
+                        fuse.reshape(b, s, -1), batch.seg_classes,
+                        batch.box_mask.to(torch.int32).sum(dim=1),
+                        train=train, compute_loss=compute_loss,
+                    )
+                else:
+                    loss_c, pred = self.field_type_head(
+                        fuse, batch.seg_classes.reshape(b * s), valid_flat,
+                        compute_loss=compute_loss, seeds=draw() if compute_loss else None,
+                    )
+                    pred_label = pred.reshape(b, s, -1)
+                total_loss = None
+                if compute_loss:
+                    total_loss = loss_c + cfg.loss_control_lambda * loss_aux
         return ModelOutput(
             total_loss=total_loss, pred_mask=pred_mask, pred_ss=pred_ss,
             gt_label=batch.seg_classes, pred_label=pred_label,

@@ -7,7 +7,10 @@ package's pure step, it updates the model and the optimizer state **in
 place** and returns the same :class:`TrainState` object. Nothing in a step
 reads a value back from the device: the clip decision is a ``torch.where``
 on the device, the schedules are indexed by a host counter, and the loss is
-returned as a 0-d tensor the caller may fetch when it wants to.
+returned as a 0-d tensor the caller may fetch when it wants to. Under a
+profiler the step records its ranges (``train_step`` with ``forward``,
+``backward`` and ``optimizer``; :mod:`vibertgrid_tpu_torch.utils.profiling`),
+and the syncs its thread makes are counted, which tests that claim.
 
 When a process group exists, the train step is the data-parallel one: the
 forward and backward run inside
@@ -36,6 +39,7 @@ from vibertgrid_tpu_torch.parallel.collectives import average_gradients, global_
 from vibertgrid_tpu_torch.parallel.mesh import Layout, current_layout
 from vibertgrid_tpu_torch.parallel.sharding import param_shardings, reduce_scatter_mean
 from vibertgrid_tpu_torch.train.optim import DualOptimizer
+from vibertgrid_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -144,18 +148,22 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
     parallel = dist.is_available() and dist.is_initialized()
 
     def train_step(state: TrainState, batch: Batch, seeds):
-        model, optimizer = state.model, state.optimizer
-        layout = model.config.mesh or (current_layout() if parallel else None)
-        split = frozenset(p for p, ax in param_shardings(model, layout).items()
-                          if ax is not None)
-        optimizer.zero_grad(set_to_none=True)
-        with global_batch(parallel, layout), _replicas_agree(layout):
-            out = model(batch, train=True, compute_loss=True, seeds=seeds)
-            loss = out.total_loss
-            loss.backward()
-        apply_gradients(optimizer, loss, parallel, loss_clip_tresh, clip_norm, layout, split)
-        state.step += 1
-        return state, loss.detach()
+        with span("train_step", step=True):
+            model, optimizer = state.model, state.optimizer
+            layout = model.config.mesh or (current_layout() if parallel else None)
+            split = frozenset(p for p, ax in param_shardings(model, layout).items()
+                              if ax is not None)
+            optimizer.zero_grad(set_to_none=True)
+            with global_batch(parallel, layout), _replicas_agree(layout):
+                out = model(batch, train=True, compute_loss=True, seeds=seeds)
+                loss = out.total_loss
+                with span("backward"):
+                    loss.backward()
+            with span("optimizer"):
+                apply_gradients(optimizer, loss, parallel, loss_clip_tresh, clip_norm, layout,
+                                split)
+            state.step += 1
+            return state, loss.detach()
 
     return train_step
 

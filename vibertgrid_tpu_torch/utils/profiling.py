@@ -1,21 +1,243 @@
-"""Tracing and profiling helpers (port of ``vibertgrid_tpu/utils/profiling.py``).
+"""Tracing and profiling (port of ``vibertgrid_tpu/utils/profiling.py``).
 
 - :func:`trace`: a context manager around ``torch.profiler`` that writes a
-  trace TensorBoard and Chrome's ``chrome://tracing`` open.
-- :class:`step_timer`: wall-clock seconds a step, each tick synchronised by
-  reading an output back to the host.
-- :func:`flops_estimate`: the floating-point operations of one call, counted
-  by ``torch.utils.flop_counter.FlopCounterMode``.
+  trace TensorBoard and Chrome's ``chrome://tracing`` open; the program's
+  ranges (:func:`span`) show in it beside the kernels.
+- :func:`span`: a named range of the program (``train_step``, ``forward``,
+  ``encoder``, ``upload``, ...). Tracing is on exactly while a
+  ``torch.profiler`` session records; otherwise a span reads one flag and
+  returns a shared no-op context, recording and allocating nothing.
+- :func:`spans`: the ranges recorded, each with its host interval and, on
+  the card, its device interval; :func:`clear` forgets them.
+
+A span recorded while tracing is on keeps its name, the span that encloses
+it on its thread, the train step it belongs to and its host start and end
+(:func:`host_ns`, the clock of the profiler's own event stamps); it opens
+``torch.profiler.record_function(name)``; where CUDA is in use it records a
+timing event at its start and at its end on the current stream. One anchor
+event, recorded on an idle stream of its own when the first span opens and
+stamped on the host clock there, places the device times on that clock.
+
+A span opened with ``step=True`` (the train step) starts a new step id,
+which every span it encloses shares; while it is open the synchronising
+CUDA calls of the thread that opened it are counted, each under that
+thread's innermost open span (``torch.cuda.set_sync_debug_mode("warn")``,
+armed for the range and disarmed after it). The recorder holds what was
+recorded since its last :func:`clear`, which :func:`trace` calls on entry:
+at most one profiling session's spans.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
+import threading
 import time
+import warnings
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
+from torch.autograd import profiler as _autograd_profiler
+
+_NOOP = contextlib.nullcontext()
+_SYNC_MESSAGE = "called a synchronizing CUDA operation"
+
+
+def host_ns() -> int:
+    """Nanoseconds on the clock the profiler stamps its events with (Unix
+    time): spans' host times, and the device times the anchor maps."""
+    return time.time_ns()
+
+
+@dataclasses.dataclass
+class Span:
+    name: str
+    parent: int | None      # index in spans() of the enclosing span on the same thread
+    step: int | None        # id of the train step it lies in, None outside any step
+    thread: int             # threading.get_ident() of the thread that opened it
+    host_start_ns: int
+    host_end_ns: int | None = None      # None while open
+    device_start_ns: int | None = None  # None without CUDA, or until spans() reads it
+    device_end_ns: int | None = None
+    syncs: int = 0          # synchronising calls made while it was the innermost open span
+    _events: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
+
+
+class _Range:
+    """A span while it is open (the on path only)."""
+
+    def __init__(self, recorder: "Recorder", name: str, step: bool):
+        self.recorder, self.name, self.step = recorder, name, step
+
+    def __enter__(self):
+        at = host_ns()
+        self.function = _autograd_profiler.record_function(self.name)
+        self.function.__enter__()
+        self.record = self.recorder._open(self.name, self.step, at)
+        return self.record
+
+    def __exit__(self, *exc):
+        self.recorder._close(self.record, self.step)
+        self.function.__exit__(*exc)
+        self.record.host_end_ns = host_ns()
+        return False
+
+
+class Recorder:
+    """The program's spans; :func:`span`, :func:`spans` and :func:`clear`
+    use the process's one recorder."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._local = threading.local()   # .stack: open spans; .steps: open step spans
+        self._spans: list[Span] = []
+        self._steps = 0
+        self._anchor = None               # (event, host ns) once a span has used CUDA
+        self._anchor_stream = None
+        self._armed = 0                   # open step spans over all threads
+        self._disarm = None               # restores the warnings and the sync mode
+
+    def span(self, name: str, step: bool = False):
+        if not _autograd_profiler._is_profiler_enabled:
+            return _NOOP
+        return _Range(self, name, step)
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+            self._local.steps = 0
+        return stack
+
+    def _open(self, name: str, step: bool, at_ns: int) -> Span:
+        stack = self._stack()
+        outer = stack[-1] if stack else None
+        cuda = torch.cuda.is_initialized()
+        with self._lock:
+            if cuda and self._anchor is None:
+                self._place_anchor()
+            if step:
+                self._steps += 1
+            index = len(self._spans)
+            own = outer is not None and outer.index < index and self._spans[outer.index] is outer.span
+            record = Span(name=name, parent=outer.index if own else None,
+                          step=self._steps if step else (outer.span.step if own else None),
+                          thread=threading.get_ident(), host_start_ns=at_ns)
+            self._spans.append(record)
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            record._events = (start, end)
+        stack.append(_Open(index, record))
+        if step:
+            self._local.steps += 1
+            self._arm()
+        return record
+
+    def _close(self, record: Span, step: bool) -> None:
+        if step:
+            self._local.steps -= 1
+            self._unarm()
+        if record._events is not None:
+            record._events[1].record()
+        self._stack().pop()
+
+    def _place_anchor(self) -> None:
+        if self._anchor_stream is None:
+            self._anchor_stream = torch.cuda.Stream()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(self._anchor_stream)
+        self._anchor = (event, host_ns())
+
+    # ---- the sync counter ----
+
+    def _arm(self) -> None:
+        with self._lock:
+            self._armed += 1
+            if self._armed > 1:
+                return
+            caught = warnings.catch_warnings()
+            caught.__enter__()
+            warnings.filterwarnings("always", message=_SYNC_MESSAGE, category=UserWarning)
+            shown = warnings.showwarning
+            warnings.showwarning = lambda *a, **k: self._warned(shown, *a, **k)
+            mode = torch.cuda.get_sync_debug_mode() if torch.cuda.is_available() else None
+            if mode == 0:
+                torch.cuda.set_sync_debug_mode("warn")
+
+            def disarm():
+                if mode == 0:
+                    torch.cuda.set_sync_debug_mode(0)
+                caught.__exit__(None, None, None)
+
+            self._disarm = disarm
+
+    def _unarm(self) -> None:
+        with self._lock:
+            self._armed -= 1
+            if self._armed == 0:
+                self._disarm()
+                self._disarm = None
+
+    def _warned(self, shown, message, category, *args, **kwargs) -> None:
+        if not (issubclass(category, UserWarning) and str(message).startswith(_SYNC_MESSAGE)):
+            shown(message, category, *args, **kwargs)
+            return
+        # a sync of a thread inside a step is counted; any other thread's
+        # warning exists only because the mode is armed, and is dropped
+        if getattr(self._local, "steps", 0) > 0:
+            self._local.stack[-1].span.syncs += 1
+
+    # ---- reading ----
+
+    def spans(self) -> list[Span]:
+        """Every span recorded since the last :meth:`clear`, in the order
+        they opened; closed spans that used CUDA get their device interval
+        (this waits for the device)."""
+        with self._lock:
+            out, anchor = list(self._spans), self._anchor
+        pending = [s for s in out if s._events is not None and s.host_end_ns is not None]
+        if pending and anchor is not None:
+            torch.cuda.synchronize()
+            event, at = anchor
+            for s in pending:
+                start, end = s._events
+                s.device_start_ns = at + round(event.elapsed_time(start) * 1e6)
+                s.device_end_ns = at + round(event.elapsed_time(end) * 1e6)
+                s._events = None
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans = []
+            self._steps = 0
+            self._anchor = None
+
+
+@dataclasses.dataclass
+class _Open:
+    index: int
+    span: Span
+
+
+_RECORDER = Recorder()
+
+
+def span(name: str, step: bool = False):
+    """A context manager: the range ``name`` of the program, recorded while
+    a ``torch.profiler`` session records, else a shared no-op. ``step``:
+    the range is a train step (a new step id; its thread's syncs counted)."""
+    return _RECORDER.span(name, step)
+
+
+def spans() -> list[Span]:
+    """The spans recorded since the last :func:`clear` (see :meth:`Recorder.spans`)."""
+    return _RECORDER.spans()
+
+
+def clear() -> None:
+    """Forget every recorded span and the anchor."""
+    _RECORDER.clear()
 
 
 @contextlib.contextmanager
@@ -23,56 +245,13 @@ def trace(logdir: str = "./log/torch-trace"):
     """Profile the host and, where one is present, the card for the length
     of the ``with`` block and write the trace under ``logdir`` (a
     ``*.pt.trace.json`` file per call, TensorBoard's layout); yields
-    ``logdir``."""
+    ``logdir``. The spans of an earlier session are forgotten on entry, so
+    :func:`spans` afterwards reads this block's."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    clear()
     with torch.profiler.profile(activities=activities,
                                 on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
         yield logdir
-
-
-class step_timer:
-    """Usage::
-
-        timer = step_timer()
-        for batch in loader:
-            state, loss = train_step(state, batch, seeds)
-            dt = timer.tick(loss)   # waits for the step: reads loss back
-    """
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-        self.history: list[float] = []
-
-    def tick(self, sync_leaf=None) -> float:
-        """Seconds since the last tick (or since the timer was made). With
-        ``sync_leaf`` (a tensor) it first reads one element of it back to
-        the host, which waits for the work that produced it."""
-        if isinstance(sync_leaf, torch.Tensor):
-            sync_leaf.detach().reshape(-1)[0].item()
-        now = time.perf_counter()
-        dt = now - self.t0
-        self.t0 = now
-        self.history.append(dt)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self.history) / max(len(self.history), 1)
-
-
-def flops_estimate(fn, *args, **kwargs) -> dict:
-    """``{"flops": n}``: the floating-point operations of ``fn(*args,
-    **kwargs)``, run once under ``FlopCounterMode``, which counts the
-    library's products, convolutions and attention by their shapes.
-
-    The port's hand-written kernels (``csrc/``, launched through ctypes) are
-    invisible to it, so a path that runs them counts only the work around
-    them; their operations and bytes are in ``PERF.md``'s kernel table, as
-    each kernel's bound (``chip_smoke.py`` computes them from the shapes)."""
-    counter = FlopCounterMode(display=False)
-    with counter:
-        fn(*args, **kwargs)
-    return {"flops": counter.get_total_flops()}

@@ -12,7 +12,8 @@
   ``loader_wait`` (consumer) a batch;
 - the sync counter, fed the warning that ``set_sync_debug_mode("warn")``
   raises, counts the step's thread under its innermost range and no other
-  thread; on the card (``cuda``) a real ``.item()``.
+  thread; on the card (``cuda``) a real ``.item()``, and one in a custom
+  backward, which autograd runs on its device thread.
 
 Imports neither JAX nor the JAX package, so the card runs the ``cuda`` test:
 ``python -m pytest --noconftest -m cuda tests/test_torch_tracing.py``.
@@ -202,26 +203,40 @@ def cuda_device():
     return torch.device("cuda")
 
 
+class _SyncInBackward(torch.autograd.Function):
+    """Doubles its input; its backward reads a value back to the host (on
+    the card autograd runs it on its own device thread)."""
+
+    @staticmethod
+    def forward(ctx, a):
+        return a * 2
+
+    @staticmethod
+    def backward(ctx, g):
+        g.sum().item()
+        return g * 2
+
+
 @pytest.mark.cuda
 def test_a_host_sync_in_a_step_counts_once_on_cuda(cuda_device):
-    x = torch.ones(4, device=cuda_device)
+    x = torch.ones(4, device=cuda_device, requires_grad=True)
     torch.cuda.synchronize()
     profiling.clear()
     mode = torch.cuda.get_sync_debug_mode()
     other = threading.Thread(target=lambda: (x * 3).sum().item())
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
         with span("train_step", step=True):
-            y = x * 2
             with span("forward"):
-                y.sum().item()
+                y = _SyncInBackward.apply(x).sum()
+                y.detach().item()
                 other.start()
                 other.join(timeout=30)
             with span("backward"):
-                y = y + 1
+                y.backward()
     assert not other.is_alive()
     assert torch.cuda.get_sync_debug_mode() == mode
     recorded = spans()
-    assert {s.name: s.syncs for s in recorded} == {"train_step": 0, "forward": 1, "backward": 0}
+    assert {s.name: s.syncs for s in recorded} == {"train_step": 0, "forward": 1, "backward": 1}
     step, forward, backward = recorded
     for s in recorded:
         assert s.device_start_ns is not None and s.device_start_ns <= s.device_end_ns

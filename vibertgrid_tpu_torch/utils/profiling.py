@@ -20,11 +20,15 @@ stamped on the host clock there, places the device times on that clock.
 
 A span opened with ``step=True`` (the train step) starts a new step id,
 which every span it encloses shares; while it is open the synchronising
-CUDA calls of the thread that opened it are counted, each under that
-thread's innermost open span (``torch.cuda.set_sync_debug_mode("warn")``,
-armed for the range and disarmed after it). The recorder holds what was
-recorded since its last :func:`clear`, which :func:`trace` calls on entry:
-at most one profiling session's spans.
+CUDA calls of the thread that opened it, and of autograd's device thread
+working for it, are counted under that thread's innermost open span
+(``torch.cuda.set_sync_debug_mode("warn")``, armed for the range and
+disarmed after it; the library detects most, not all, such calls).
+
+The recorder holds what was recorded since its last :func:`clear`, which
+:func:`trace` calls on entry, so that it holds one profiling session's
+spans; code that starts a ``torch.profiler`` session itself calls
+:func:`clear` first.
 """
 
 from __future__ import annotations
@@ -89,13 +93,14 @@ class Recorder:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._local = threading.local()   # .stack: open spans; .steps: open step spans
+        self._local = threading.local()   # .stack: (index, span) of open spans; .steps: open steps
         self._spans: list[Span] = []
         self._steps = 0
         self._anchor = None               # (event, host ns) once a span has used CUDA
         self._anchor_stream = None
         self._armed = 0                   # open step spans over all threads
-        self._disarm = None               # restores the warnings and the sync mode
+        self._stepping = None             # the open spans of the thread that armed the counter
+        self._restore = None              # restores the warnings and the sync mode
 
     def span(self, name: str, step: bool = False):
         if not _autograd_profiler._is_profiler_enabled:
@@ -111,7 +116,6 @@ class Recorder:
 
     def _open(self, name: str, step: bool, at_ns: int) -> Span:
         stack = self._stack()
-        outer = stack[-1] if stack else None
         cuda = torch.cuda.is_initialized()
         with self._lock:
             if cuda and self._anchor is None:
@@ -119,19 +123,21 @@ class Recorder:
             if step:
                 self._steps += 1
             index = len(self._spans)
-            own = outer is not None and outer.index < index and self._spans[outer.index] is outer.span
-            record = Span(name=name, parent=outer.index if own else None,
-                          step=self._steps if step else (outer.span.step if own else None),
+            parent, outer = stack[-1] if stack else (None, None)
+            if parent is not None and (parent >= index or self._spans[parent] is not outer):
+                parent = outer = None  # opened before the last clear()
+            record = Span(name=name, parent=parent,
+                          step=self._steps if step else (outer.step if outer else None),
                           thread=threading.get_ident(), host_start_ns=at_ns)
             self._spans.append(record)
         if cuda:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             record._events = (start, end)
-        stack.append(_Open(index, record))
+        stack.append((index, record))
         if step:
             self._local.steps += 1
-            self._arm()
+            self._arm(stack)
         return record
 
     def _close(self, record: Span, step: bool) -> None:
@@ -143,19 +149,29 @@ class Recorder:
         self._stack().pop()
 
     def _place_anchor(self) -> None:
+        # The event runs as soon as the driver hands it to the idle stream,
+        # at the end of the record call. A session's first CUDA calls under
+        # the profiler can take milliseconds, so the stamp is kept only from
+        # a call that took under 50 us (or the last of four).
         if self._anchor_stream is None:
             self._anchor_stream = torch.cuda.Stream()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record(self._anchor_stream)
-        self._anchor = (event, host_ns())
+        for _ in range(4):
+            event = torch.cuda.Event(enable_timing=True)
+            before = host_ns()
+            event.record(self._anchor_stream)
+            after = host_ns()
+            if after - before < 50_000:
+                break
+        self._anchor = (event, after)
 
     # ---- the sync counter ----
 
-    def _arm(self) -> None:
+    def _arm(self, stack: list) -> None:
         with self._lock:
             self._armed += 1
             if self._armed > 1:
                 return
+            self._stepping = stack
             caught = warnings.catch_warnings()
             caught.__enter__()
             warnings.filterwarnings("always", message=_SYNC_MESSAGE, category=UserWarning)
@@ -165,28 +181,36 @@ class Recorder:
             if mode == 0:
                 torch.cuda.set_sync_debug_mode("warn")
 
-            def disarm():
+            def restore():
                 if mode == 0:
                     torch.cuda.set_sync_debug_mode(0)
                 caught.__exit__(None, None, None)
 
-            self._disarm = disarm
+            self._restore = restore
 
     def _unarm(self) -> None:
         with self._lock:
             self._armed -= 1
             if self._armed == 0:
-                self._disarm()
-                self._disarm = None
+                self._restore()
+                self._restore = self._stepping = None
 
     def _warned(self, shown, message, category, *args, **kwargs) -> None:
         if not (issubclass(category, UserWarning) and str(message).startswith(_SYNC_MESSAGE)):
             shown(message, category, *args, **kwargs)
             return
-        # a sync of a thread inside a step is counted; any other thread's
-        # warning exists only because the mode is armed, and is dropped
+        # Counted: a sync of a thread inside a step, and one of autograd's
+        # device thread, which runs the backward (a custom Function's in
+        # Python) that the step's thread waits on. Any other thread's warning
+        # exists only because the mode is armed, and is dropped.
         if getattr(self._local, "steps", 0) > 0:
-            self._local.stack[-1].span.syncs += 1
+            stack = self._local.stack
+        elif torch._C._current_graph_task_id() != -1:
+            stack = self._stepping
+        else:
+            return
+        if stack:
+            stack[-1][1].syncs += 1
 
     # ---- reading ----
 
@@ -212,12 +236,6 @@ class Recorder:
             self._spans = []
             self._steps = 0
             self._anchor = None
-
-
-@dataclasses.dataclass
-class _Open:
-    index: int
-    span: Span
 
 
 _RECORDER = Recorder()

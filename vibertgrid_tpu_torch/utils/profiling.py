@@ -88,7 +88,7 @@ class _Range:
 
 
 class Recorder:
-    """The program's spans; :func:`span`, :func:`spans` and :func:`clear`
+    """The program's spans: :func:`span`, :func:`spans` and :func:`clear`
     use the process's one recorder."""
 
     def __init__(self):
@@ -101,11 +101,6 @@ class Recorder:
         self._armed = 0                   # open step spans over all threads
         self._stepping = None             # the open spans of the thread that armed the counter
         self._restore = None              # restores the warnings and the sync mode
-
-    def span(self, name: str, step: bool = False):
-        if not _autograd_profiler._is_profiler_enabled:
-            return _NOOP
-        return _Range(self, name, step)
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -245,7 +240,9 @@ def span(name: str, step: bool = False):
     """A context manager: the range ``name`` of the program, recorded while
     a ``torch.profiler`` session records, else a shared no-op. ``step``:
     the range is a train step (a new step id; its thread's syncs counted)."""
-    return _RECORDER.span(name, step)
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NOOP
+    return _Range(_RECORDER, name, step)
 
 
 def spans() -> list[Span]:

@@ -144,10 +144,10 @@ class Recorder:
         self._stack().pop()
 
     def _place_anchor(self) -> None:
-        # The event runs as soon as the driver hands it to the idle stream,
-        # at the end of the record call. A session's first CUDA calls under
-        # the profiler can take milliseconds, so the stamp is kept only from
-        # a call that took under 50 us (or the last of four).
+        # The event runs on the idle stream as soon as the record call has
+        # handed it over, at the call's end. A profiling session's first CUDA
+        # calls can take milliseconds, so the stamp is kept only from a call
+        # that took under 50 us (or the last of four).
         if self._anchor_stream is None:
             self._anchor_stream = torch.cuda.Stream()
         for _ in range(4):

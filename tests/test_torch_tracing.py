@@ -10,6 +10,8 @@
 - two steps traced and untraced give the same bits;
 - ``prefetch_to_device`` records ``upload`` (producer thread) and
   ``loader_wait`` (consumer) a batch;
+- a CUDA graph's captured ranges, replayed under the profiler, become
+  spans of the open step with device intervals and no host interval;
 - the sync counter, fed the warning that ``set_sync_debug_mode("warn")``
   raises, counts the step's thread under its innermost range and no other
   thread; on the card (``cuda``) a real ``.item()``, and one in a custom
@@ -24,6 +26,7 @@ import dataclasses
 import json
 import os
 import threading
+import types
 import warnings
 
 import numpy as np
@@ -194,6 +197,59 @@ def test_trace_forgets_the_last_session_and_writes_the_ranges(tmp_path):
     with open(os.path.join(logdir, files[0])) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "train_step" for e in events)
+
+
+class _Stamp:
+    """A stand-in for a timing event: ``ms`` after the anchor's stamp."""
+
+    def __init__(self, ms: float):
+        self.ms = ms
+
+    def elapsed_time(self, other) -> float:
+        return other.ms - self.ms
+
+    def synchronize(self) -> None:
+        pass
+
+
+def test_a_replays_ranges_become_spans_of_the_open_step_on_the_device_only():
+    """``replay`` records a graph's captured ranges in the open train step,
+    nested as captured, with device intervals from their events and no
+    host interval; a replay of the same graph first reads the last one's
+    events, which the new replay then records over."""
+    marks = profiling.Marks()
+    stamps = [_Stamp(ms) for ms in (1.0, 5.0, 1.5, 3.0, 5.0, 9.0)]
+    marks.ranges = [("forward", None, *stamps[0:2]), ("encoder", 0, *stamps[2:4]),
+                    ("backward", None, *stamps[4:6])]
+    marks.last = stamps[5]
+
+    def record_again():  # the replay's events record anew, 100 ms later
+        for stamp in stamps:
+            stamp.ms += 100.0
+
+    graph = types.SimpleNamespace(replay=record_again)
+    profiling.clear()
+    profiling.replay(graph, marks)  # no profiler: nothing recorded
+    assert marks.pending is None and spans() == []
+    try:
+        with _profiler():
+            profiling._RECORDER._anchor = (_Stamp(0.0), 10**9)
+            for _ in range(2):
+                with span("train_step", step=True):
+                    profiling.replay(graph, marks)
+        recorded = spans()
+    finally:
+        profiling.clear()
+    assert [(s.name, s.step) for s in recorded] == [
+        (name, k) for k in (1, 2) for name in ("train_step", "forward", "encoder", "backward")]
+    for k, offset in ((0, 200.0), (4, 300.0)):
+        top, forward, encoder, backward = recorded[k:k + 4]
+        assert (forward.parent, encoder.parent, backward.parent) == (k, k + 1, k)
+        assert top.host_start_ns is not None and top.device_start_ns is None
+        for s, (a, b) in ((forward, (1.0, 5.0)), (encoder, (1.5, 3.0)), (backward, (5.0, 9.0))):
+            assert s.host_start_ns is None and s.host_end_ns is None and s.syncs == 0
+            assert (s.device_start_ns, s.device_end_ns) == (
+                10**9 + round((a + offset) * 1e6), 10**9 + round((b + offset) * 1e6))
 
 
 @pytest.fixture

@@ -68,11 +68,16 @@ __device__ __forceinline__ uint32_t splitmix32(uint32_t x, uint32_t seed) {
 
 // Dropout of one fused kernel call: keep where the hash of the element's
 // flat index reaches `threshold` = uint32(rate * 2^32). `on` is 0 at rate 0.
+// The seed lives in device memory (a slot of the train step's seed tensor),
+// so a replayed CUDA graph reads the step's own seed: every kernel calls
+// load() before its first keep().
 struct Dropout {
   int on;
-  uint32_t seed;
+  const uint32_t* seed_ptr;  // read only when on
   uint32_t threshold;
   float scale;  // attention: 1 / (1 - rate), a factor; FFN: 1 - rate, a divisor
+  uint32_t seed;  // *seed_ptr once load() has run
+  __device__ __forceinline__ void load() { seed = on ? *seed_ptr : 0u; }
   __device__ __forceinline__ bool keep(uint32_t index) const {
     return splitmix32(index, seed) >= threshold;
   }

@@ -76,6 +76,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = (size_t)b * T_len * HD + (size_t)h * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = warp * 8;  // this warp's 8 query rows within the tile
+  drop.load();
   drop.seed += (uint32_t)(b * H + h);
   const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
 
@@ -265,6 +266,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = (size_t)b * T_len * HD + (size_t)h * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_tiles = Tp / kBK, total = 2 * n_tiles;
+  drop.load();
   drop.seed += (uint32_t)(b * H + h);
   const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
   auto prefetch = [&](int s) {
@@ -468,6 +470,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31, quad = lane & 3;
   // this thread's rows: row0, row0 + 8
   const int row0 = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  drop.load();
   drop.seed += (uint32_t)(b * H + h);
   const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
 
@@ -602,18 +605,22 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, const flo
 // probabilities when dropout != 0: element (row, col) of head (b, h) is kept
 // where splitmix32(row * round_up(T, 128) + col, seed + b * H + h) >=
 // threshold, and kept values are scaled by keep_scale = 1 / (1 - rate),
-// after the normalisation and before p is rounded to the storage dtype.
+// after the normalisation and before p is rounded to the storage dtype;
+// seed: a device pointer to the int32 seed, read by the kernel (unused when
+// dropout == 0).
 // lse: [B, H, T] fp32, written with max + log(sum) of each row's biased
 // scores, or null when no gradient will be taken.
 extern "C" int vg_flash_attention(const void* q, const void* k, const void* v,
                                   const void* bias, void* out, void* lse, int B, int T_len,
-                                  int H, int D, float scale, int dtype, int dropout, int seed,
-                                  unsigned threshold, float keep_scale, void* stream) {
+                                  int H, int D, float scale, int dtype, int dropout,
+                                  const void* seed, unsigned threshold, float keep_scale,
+                                  void* stream) {
   if (T_len < 1 || T_len > 512) return cudaErrorInvalidValue;
   const float* bs = static_cast<const float*>(bias);
   float* ls = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const vg::Dropout drop{dropout, (uint32_t)seed, threshold, keep_scale};
+  const vg::Dropout drop{dropout, static_cast<const uint32_t*>(seed), threshold, keep_scale,
+                         0u};
   if (dtype == 0) return dispatch<float>(q, k, v, bs, out, ls, B, T_len, H, D, scale, drop, st);
   if (dtype == 1) return dispatch_bf16(q, k, v, bs, out, ls, B, T_len, H, D, scale, drop, st);
   return cudaErrorInvalidValue;

@@ -172,6 +172,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int HD = H * D;
   const size_t base = (size_t)b * T_len * HD + (size_t)h * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  drop.load();
   drop.seed += (uint32_t)(b * H + h);
   const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
 
@@ -296,6 +297,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kBK, h = blockIdx.y, b = blockIdx.z;
   const int HD = H * D;
   const size_t base = (size_t)b * T_len * HD + (size_t)h * D;
+  drop.load();
   drop.seed += (uint32_t)(b * H + h);
   const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
 
@@ -455,6 +457,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (T_len + kTileRows - 1) / kTileRows, n_steps = 2 * n_tiles;
   const int lane = threadIdx.x & 31, quad = lane & 3;
   const int row0 = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // rows row0 and row0 + 8
+  drop.load();
   drop.seed += (uint32_t)(b * H + h);
   const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
 
@@ -571,6 +574,7 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (T_len + kTileRows - 1) / kTileRows;
   const int lane = threadIdx.x & 31, quad = lane & 3;
   const int key0 = k0 + 16 * (threadIdx.x >> 5) + (lane >> 2);  // keys key0 and key0 + 8
+  drop.load();
   drop.seed += (uint32_t)(b * H + h);
   const uint32_t drop_ld = (uint32_t)vg::round_up128(T_len);
 
@@ -705,15 +709,16 @@ extern "C" int vg_flash_attention_bwd(const void* q, const void* k, const void* 
                                       const void* bias, const void* d_out, const void* lse,
                                       void* dq, void* dk, void* dv, void* d_bias_part,
                                       void* delta, int B, int T_len, int H, int D, float scale,
-                                      int dtype, int dropout, int seed, unsigned threshold,
-                                      float keep_scale, void* stream) {
+                                      int dtype, int dropout, const void* seed,
+                                      unsigned threshold, float keep_scale, void* stream) {
   if (T_len < 1 || T_len > 512 || D < 1 || D > 128) return cudaErrorInvalidValue;
   const float* bs = static_cast<const float*>(bias);
   const float* ls = static_cast<const float*>(lse);
   float* dbp = static_cast<float*>(d_bias_part);
   float* dl = static_cast<float*>(delta);
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
-  const vg::Dropout drop{dropout, (uint32_t)seed, threshold, keep_scale};
+  const vg::Dropout drop{dropout, static_cast<const uint32_t*>(seed), threshold, keep_scale,
+                         0u};
   if (dtype == 0)
     return launch<float, float>(q, k, v, bs, d_out, ls, dq, dk, dv, dbp, dl, B, T_len, H, D,
                                 scale, drop, sm);

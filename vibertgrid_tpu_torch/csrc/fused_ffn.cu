@@ -113,6 +113,7 @@ ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __res
            const float* __restrict__ gamma, const float* __restrict__ beta,
            T* __restrict__ out, Saved<T> saved, int N, int F, float eps, vg::Dropout drop) {
   constexpr int D = NJ * 32;
+  drop.load();
   extern __shared__ float smem[];
   float* Xs = smem;                      // [kR][D]
   float* W1s = Xs + kR * D;              // [kKT][kFC + 1]
@@ -450,6 +451,7 @@ ffn_down_ln_kernel(const __grid_constant__ CUtensorMap h_map,
                    const float* __restrict__ beta, bf16* __restrict__ out,
                    bf16* __restrict__ yhat, float* __restrict__ rsig, int N, int F, float eps,
                    vg::Dropout drop) {
+  drop.load();
   extern __shared__ unsigned char smem_down[];
   unsigned char* smem = align1024(smem_down);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDownStages * kDownStage);
@@ -608,20 +610,21 @@ cudaError_t vg::ffn_down_ln(const DownLn& a) {
 // fp32. Dropout of the second product's output when dropout != 0: element
 // (row, col) is kept where splitmix32(row * D + col, seed) >= threshold, and
 // kept values are divided by keep_div = 1 - rate (the wgmma body multiplies
-// by its reciprocal), after + b2 and before the residual. h: an [N, F] bf16
+// by its reciprocal), after + b2 and before the residual; seed: a device
+// pointer to the int32 seed (unused when dropout == 0). h: an [N, F] bf16
 // scratch that bf16 at D = 768 needs (it then holds bf16(gelu(h1))); null
 // otherwise.
 extern "C" int vg_fused_ffn(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, const void* gamma, const void* beta, void* out,
                             void* h1, void* yhat, void* rsig, void* h, int N, int D, int F,
-                            float eps, int dtype, int dropout, int seed, unsigned threshold,
-                            float keep_div, void* stream) {
+                            float eps, int dtype, int dropout, const void* seed,
+                            unsigned threshold, float keep_div, void* stream) {
   if (F % kFC != 0 || N < 1) return cudaErrorInvalidValue;
   if (h1 != nullptr && (yhat == nullptr || rsig == nullptr)) return cudaErrorInvalidValue;
   const Args a{x, w1, static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
                static_cast<const float*>(gamma), static_cast<const float*>(beta), out, h1, yhat,
                static_cast<float*>(rsig), h, N, D, F, eps,
-               vg::Dropout{dropout, (uint32_t)seed, threshold, keep_div},
+               vg::Dropout{dropout, static_cast<const uint32_t*>(seed), threshold, keep_div, 0u},
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch<float>(a);
   if (dtype == 1) return dispatch_bf16(a);

@@ -90,6 +90,7 @@ proj_ln_kernel(const T* __restrict__ ctx, const T* __restrict__ res, const T* __
                const float* __restrict__ beta, T* __restrict__ out, int N, float eps,
                vg::Dropout drop) {
   constexpr int D = NJ * 32;
+  drop.load();
   extern __shared__ float smem[];
   float* Cs = smem;           // [kR][D]
   float* Ws = Cs + kR * D;    // [kKB][D + 1]
@@ -185,16 +186,17 @@ cudaError_t dispatch_bf16(const Args& a) {
 // projection when dropout != 0: element (row, col) is kept where
 // splitmix32(row * D + col, seed) >= threshold, and kept values are divided
 // by keep_div = 1 - rate (the wgmma body multiplies by its reciprocal), after
-// + b and before the residual. bf16 at D = 768 needs ctx and W 16-byte
+// + b and before the residual; seed: a device pointer to the int32 seed
+// (unused when dropout == 0). bf16 at D = 768 needs ctx and W 16-byte
 // aligned (TMA); a failed tensor-map encode returns cudaErrorInvalidValue.
 extern "C" int vg_fused_proj_ln(const void* ctx, const void* res, const void* w, const void* b,
                                 const void* gamma, const void* beta, void* out, int N, int D,
-                                float eps, int dtype, int dropout, int seed, unsigned threshold,
-                                float keep_div, void* stream) {
+                                float eps, int dtype, int dropout, const void* seed,
+                                unsigned threshold, float keep_div, void* stream) {
   if (N < 1) return cudaErrorInvalidValue;
   const Args a{ctx, res, w, static_cast<const float*>(b), static_cast<const float*>(gamma),
                static_cast<const float*>(beta), out, N, D, eps,
-               vg::Dropout{dropout, (uint32_t)seed, threshold, keep_div},
+               vg::Dropout{dropout, static_cast<const uint32_t*>(seed), threshold, keep_div, 0u},
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch<float>(a);
   if (dtype == 1) return dispatch_bf16(a);

@@ -11,8 +11,11 @@ int32: multiplies wrap as uint32 multiplies do, the logical right shifts are
 arithmetic shifts with the sign extension masked off, and unsigned
 comparisons flip the sign bit of both sides.
 
-Every random site takes an explicit int seed (see
-:class:`vibertgrid_tpu_torch.train.seeds.SeedStream`); the JAX package's
+Every random site takes an explicit seed (see
+:class:`vibertgrid_tpu_torch.train.seeds.SeedStream`): an int, or in a train
+step a 0-d int32 tensor on the device, its slot of the step's seed tensor
+(:class:`vibertgrid_tpu_torch.train.seeds.DeviceSeeds`), which a replayed
+CUDA graph refills; both give the same masks. The JAX package's
 ``derive_seed`` draws from a threefry key and has no counterpart here.
 
 In a data-parallel train step :func:`hash_dropout` counts from this rank's
@@ -37,6 +40,17 @@ def _i32(value: int) -> int:
     """The Python int whose int32 bit pattern is ``value mod 2³²``."""
     value &= _M32
     return value - 2**32 if value >= 2**31 else value
+
+
+def as_seed(seed):
+    """A site's seed as the ops take it: a tensor seed as it is, else an int."""
+    return seed if isinstance(seed, torch.Tensor) else int(seed)
+
+
+def seed_i32(seed):
+    """The int32 bit pattern of a seed: an int (:func:`_i32`), or an int32
+    tensor for a tensor seed."""
+    return seed.to(torch.int32) if isinstance(seed, torch.Tensor) else _i32(int(seed))
 
 
 def _lsr(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -94,10 +108,12 @@ def keep_mask(shape, seed, rate: float, device, base=0) -> torch.Tensor:
     return keep_from_bits(splitmix32_i32(counters, seed), rate).reshape(tuple(shape))
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float, base) -> torch.Tensor:
-    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+def _apply(x: torch.Tensor, seed, rate: float, base) -> torch.Tensor:
+    # 1/(1 - rate) rounded to x's dtype, on the host: the factor is built on
+    # the device from the mask and a Python scalar, with no copy from the host
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype).item()
     keep = keep_mask(x.shape, seed, rate, x.device, base)
-    return x * torch.where(keep, scale, torch.zeros((), dtype=x.dtype, device=x.device))
+    return x * keep.to(x.dtype).mul_(scale)
 
 
 class _HashDropout(torch.autograd.Function):
@@ -115,13 +131,14 @@ class _HashDropout(torch.autograd.Function):
         return _apply(grad, ctx.seed, ctx.rate, ctx.base), None, None
 
 
-def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
     """Dropout with a counter-based mask: ``x · keep / (1 − rate)``.
 
-    ``seed``: int32 value, distinct for each call site; ``rate`` in [0, 1).
+    ``seed``: int32 value, distinct for each call site (an int, or a 0-d
+    int32 tensor on x's device); ``rate`` in [0, 1).
     In a data-parallel step the mask is this rank's rows of the mask of the
     ranks' arrays concatenated.
     """
     if rate <= 0.0:
         return x
-    return _HashDropout.apply(x, int(seed), float(rate))
+    return _HashDropout.apply(x, as_seed(seed), float(rate))

@@ -31,7 +31,7 @@ import torch
 
 from vibertgrid_tpu_torch.ops import kernels
 from vibertgrid_tpu_torch.parallel.collectives import fold_seed
-from vibertgrid_tpu_torch.ops.dropout import _i32, keep_from_bits, splitmix32_i32
+from vibertgrid_tpu_torch.ops.dropout import as_seed, keep_from_bits, seed_i32, splitmix32_i32
 
 
 def _keep_scale(rate: float) -> float:
@@ -46,7 +46,7 @@ def attention_dropout_mask(b: int, num_heads: int, t: int, seed: int, rate: floa
     rows = torch.arange(t, dtype=torch.int32, device=device)
     index = rows[:, None] * tp + rows[None, :]
     heads = torch.arange(b * num_heads, dtype=torch.int32, device=device)
-    seeds = (heads + _i32(seed)).reshape(b, num_heads, 1, 1)  # wrapping int32 add
+    seeds = (heads + seed_i32(seed)).reshape(b, num_heads, 1, 1)  # wrapping int32 add
     keep = keep_from_bits(splitmix32_i32(index, seeds), rate)
     return keep.float() * _keep_scale(rate)
 
@@ -187,6 +187,7 @@ def attention_forward(q, k, v, bias, sm_scale, num_heads, seed, rate, need_lse):
     out = torch.empty_like(q)
     lse = (torch.empty((b, num_heads, t), dtype=torch.float32, device=q.device)
            if need_lse else None)
+    seed = kernels.seed_tensor(seed, q.device) if rate > 0.0 else None
     lib = kernels.library()
     kernels.LAUNCHES["flash_attention"] += 1
     err = lib.vg_flash_attention(
@@ -217,6 +218,7 @@ def _backward(q, k, v, bias, lse, d_out, sm_scale, num_heads, seed, rate, need_b
     # delta = rowsum(dp * p): written by the dq pass, read by the dk/dv pass
     delta = torch.empty_like(lse)
     part = torch.empty_like(lse) if need_bias else None
+    seed = kernels.seed_tensor(seed, q.device) if rate > 0.0 else None
     lib = kernels.library()
     kernels.LAUNCHES["flash_attention_bwd"] += 1
     err = lib.vg_flash_attention_bwd(
@@ -264,4 +266,4 @@ def flash_attention(q, k, v, bias, sm_scale: float, num_heads: int, rate: float 
     if rate > 0.0:
         seed = fold_seed(seed)
     return _FlashAttention.apply(q, k, v, bias, float(sm_scale), int(num_heads),
-                                 int(seed), float(rate))
+                                 as_seed(seed), float(rate))

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from vibertgrid_tpu_torch.ops import kernels
-from vibertgrid_tpu_torch.ops.dropout import keep_mask
+from vibertgrid_tpu_torch.ops.dropout import as_seed, keep_mask
 from vibertgrid_tpu_torch.parallel.collectives import fold_seed
 
 _ERF_CLIP = 3.832506856900711
@@ -184,6 +184,7 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, eps, seed, rate, saved: bool, 
         yhat = torch.empty_like(x)
         rsig = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
+    seed = kernels.seed_tensor(seed, x.device) if rate > 0.0 else None
     lib = kernels.library()
     kernels.LAUNCHES[name] += 1
     err = lib.vg_fused_ffn(
@@ -315,7 +316,7 @@ def fused_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float, rate: float = 0.
     """
     if rate > 0.0:
         seed = fold_seed(seed)
-    return _FusedFFNRemat.apply(x, w1, b1, w2, b2, ln_scale, ln_bias, float(eps), int(seed),
+    return _FusedFFNRemat.apply(x, w1, b1, w2, b2, ln_scale, ln_bias, float(eps), as_seed(seed),
                                 float(rate))
 
 
@@ -327,7 +328,7 @@ def fused_ffn_saved(x, w1, b1, w2, b2, ln_scale, ln_bias, eps: float, rate: floa
     if rate > 0.0:
         seed = fold_seed(seed)
     return _FusedFFNSaved.apply(x, w1, b1, w2, b2, ln_scale, ln_bias, float(eps),
-                                int(seed), float(rate))
+                                as_seed(seed), float(rate))
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +364,7 @@ def _launch_proj_ln(ctx, res, w, b, ln_scale, ln_bias, eps, seed, rate):
     if d not in (64, 128, 256, 512, 768):
         raise ValueError(f"kernel takes D in (64, 128, 256, 512, 768): {d}")
     out = torch.empty_like(ctx)
+    seed = kernels.seed_tensor(seed, ctx.device) if rate > 0.0 else None
     lib = kernels.library()
     kernels.LAUNCHES[name] += 1
     err = lib.vg_fused_proj_ln(
@@ -422,5 +424,5 @@ def fused_proj_ln(ctx, res, w, b, ln_scale, ln_bias, eps: float, rate: float = 0
     :func:`proj_ln_reference`."""
     if rate > 0.0:
         seed = fold_seed(seed)
-    return _FusedProjLN.apply(ctx, res, w, b, ln_scale, ln_bias, float(eps), int(seed),
+    return _FusedProjLN.apply(ctx, res, w, b, ln_scale, ln_bias, float(eps), as_seed(seed),
                               float(rate))

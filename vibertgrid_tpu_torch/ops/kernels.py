@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from vibertgrid_tpu_torch.ops.dropout import seed_i32
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vibertgrid_tpu_torch"
 SOURCES = (
@@ -45,7 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-_DROPOUT = [_I, _I, _U, _F]  # on, seed, threshold, scale: see dropout_args()
+_DROPOUT = [_I, _P, _U, _F]  # on, seed (a device pointer), threshold, scale: see dropout_args()
 _SIGNATURES = {
     # q, k, v, bias, out, lse, B, T, H, D, scale, dtype, dropout..., stream
     "vg_flash_attention": [_P] * 6 + [_I, _I, _I, _I, _F, _I, *_DROPOUT, _P],
@@ -154,14 +156,29 @@ def dtype_code(dtype: torch.dtype) -> int:
     raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
 
 
-def dropout_args(seed: int, rate: float, scale: float) -> tuple[int, int, int, float]:
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The seed of a kernel's dropout as the kernels read it: a 0-d int32
+    tensor on ``device``. A tensor seed (a slot of the train step's seed
+    tensor, which a replayed CUDA graph refills) is used as it is; an int is
+    written there by a fill, wrapped to int32, with no copy from the host."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int32 or seed.dim() != 0 or seed.device != device:
+            raise ValueError(f"a seed tensor must be 0-d int32 on {device}, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+        return seed
+    return torch.full((), seed_i32(seed), dtype=torch.int32, device=device)
+
+
+def dropout_args(seed: torch.Tensor | None, rate: float,
+                 scale: float) -> tuple[int, int | None, int, float]:
     """The kernels' dropout arguments ``(on, seed, threshold, scale)``: an
     element is kept where its hash reaches ``int(rate·2³²)``, compared
-    unsigned; ``seed`` is passed as a wrapped int32."""
+    unsigned; ``seed`` is the address of the 0-d int32 tensor
+    (:func:`seed_tensor`) that the kernel reads when it runs, so the caller
+    keeps the tensor alive across the call."""
     if rate <= 0.0:
-        return 0, 0, 0, 1.0
-    seed = ((int(seed) + 2**31) % 2**32) - 2**31
-    return 1, seed, int(rate * float(2**32)), scale
+        return 0, None, 0, 1.0
+    return 1, seed.data_ptr(), int(rate * float(2**32)), scale
 
 
 def check_inputs(name: str, *tensors: torch.Tensor) -> None:

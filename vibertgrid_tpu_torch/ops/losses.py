@@ -47,14 +47,25 @@ and the ranks' streams are disjoint when they do not.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vibertgrid_tpu_torch.ops.dropout import flat_index, splitmix32
 from vibertgrid_tpu_torch.parallel.collectives import active, all_sum, gather, index_base
 
 
+@functools.lru_cache(maxsize=None)
+def _weights_on(weight: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(weight, dtype=torch.float32, device=device)
+
+
 def _weight_tensor(weight, device):
-    return torch.as_tensor(weight, dtype=torch.float32, device=device)
+    """The class weights on ``device``, copied there once (an eager step
+    makes the copy before a CUDA graph's capture would need it)."""
+    if isinstance(weight, torch.Tensor):
+        return weight.to(device=device, dtype=torch.float32)
+    return _weights_on(tuple(float(w) for w in weight), torch.device(device))
 
 
 def _per_example_weight(targets, weight):
@@ -151,7 +162,10 @@ def _weighted_threshold(keys, w, k: int):
     order = torch.argsort(keys, descending=True)
     reached = torch.cumsum(w[order], 0) >= k
     first = torch.argmax(reached.to(torch.int8))
-    return torch.where(reached.any(), keys[order][first], 0)
+    # a gather by the 1-element index: indexing by the 0-d ``first`` would
+    # read it back to the host
+    at = keys.gather(0, order.gather(0, first.reshape(1)))[0]
+    return torch.where(reached.any(), at, 0)
 
 
 def _weighted_topk_sum(values, weights, k: int):

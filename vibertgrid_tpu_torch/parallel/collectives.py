@@ -173,14 +173,17 @@ def index_base(n: int, device) -> torch.Tensor | int:
     return counts[:g.data_index].sum()
 
 
-def fold_seed(seed: int) -> int:
+def fold_seed(seed):
     """``seed + (data_index·model + model_index)·2¹⁶`` in wrapping int32: the
     in-kernel dropout's seed on this rank, as the JAX package's sharded
     kernels fold the shard index in (a kernel's program ids restart at 0 on
-    every shard); ``seed + rank·2¹⁶`` without tensor parallelism."""
+    every shard); ``seed + rank·2¹⁶`` without tensor parallelism. A tensor
+    seed (a 0-d int32 slot of the step's seeds) is folded on its device."""
     g = _ACTIVE.get()
     if g is None:
         return seed
+    if isinstance(seed, torch.Tensor):
+        return seed + (((g.rank * 2**16 + 2**31) % 2**32) - 2**31)  # int32 arithmetic wraps
     return ((int(seed) + g.rank * 2**16 + 2**31) % 2**32) - 2**31
 
 

@@ -5,7 +5,19 @@ Parameters whose name contains the ``bert_model`` module go to AdamW,
 everything else to SGD with momentum (torch-style coupled weight decay: the
 decay is added to the gradient before the momentum). Learning rates and
 weight decays follow per-iteration schedule arrays (StepLR every 15 epochs
-× 0.1, cosine weight decay), indexed by a host step counter.
+× 0.1, cosine weight decay).
+
+The update's per-step scalars are rows of one fp32 table, computed once on
+the host as the fp32 values the update has always used: the learning rates
+(negated), the weight decays and Adam's two bias corrections, with their
+reciprocals. An update run eagerly takes its row as host floats, the
+``alpha=`` and scalar forms of the ``_foreach_*`` passes. An update captured
+into a CUDA graph reads the row on the device, at a step counter there that
+every update advances, so each replay of the train step reads its own row:
+``addcmul`` by the 0-d scalar rounds once, as ``alpha=`` does, and a
+division takes the library's arithmetic for a scalar, so both forms give
+the same bits. ``count`` is the host's copy of the counter (checkpoints
+save it; setting it sets both).
 
 The momentum buffer and the Adam moments are *stored* in
 ``optimizer_state_dtype`` (bf16 by default); the arithmetic is fp32 and the
@@ -22,15 +34,13 @@ already, and so are their states.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from vibertgrid_tpu_torch.parallel.sharding import all_gather_slices
-from vibertgrid_tpu_torch.train.schedules import (
-    cosine_scheduler,
-    schedule_value,
-    step_scheduler,
-)
+from vibertgrid_tpu_torch.train.schedules import cosine_scheduler, step_scheduler
 
 
 def param_group_label(name: str) -> str:
@@ -44,6 +54,55 @@ def _f32(tensors):
 
 def _store(states, values):
     torch._foreach_copy_(states, values)  # casts to the state dtype on write
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
+def _axpy(ys, a, xs, out: bool = False):
+    """``y + a·x`` for each pair. ``a`` a host float: one ``_foreach_add``
+    with ``alpha``; a 0-d device tensor: an ``addcmul`` a pair, which rounds
+    once, as ``alpha`` does. In place unless ``out``."""
+    if isinstance(a, float):
+        return (torch._foreach_add if out else torch._foreach_add_)(ys, xs, alpha=a)
+    if out:
+        return [torch.addcmul(y, x, a) for y, x in zip(ys, xs)]
+    for y, x in zip(ys, xs):
+        y.addcmul_(x, a)
+    return ys
+
+
+def _divide(xs, d, inv_d):
+    """``x / d`` for each x. ``d`` a host float: ``_foreach_div``; a 0-d
+    device tensor: that division's arithmetic, on CUDA a product with the
+    fp32 reciprocal ``inv_d``, on the CPU a division."""
+    if isinstance(d, float):
+        return torch._foreach_div(xs, d)
+    if xs and xs[0].is_cuda:
+        return torch._foreach_mul(xs, inv_d)
+    return torch._foreach_div(xs, d)
+
+
+# columns of DualOptimizer's table
+_NEG_LR_CNN, _WD_CNN, _NEG_LR_BERT, _WD_BERT, _BC1, _BC2, _INV_BC1, _INV_BC2 = range(8)
+_MAX_ROWS = 1 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_corrections(beta1: float, beta2: float) -> np.ndarray:
+    """``[n, 4]`` fp32: Adam's ``1 − β1^(k+1)`` and ``1 − β2^(k+1)`` for
+    update k, each a scalar fp32 power as the JAX package computes it, until
+    both reach 1 (at most ``_MAX_ROWS`` rows), then their reciprocals."""
+    b1, b2, one = np.float32(beta1), np.float32(beta2), np.float32(1.0)
+    rows = []
+    while len(rows) < _MAX_ROWS and (not rows or rows[-1] != (one, one)):
+        count = np.float32(len(rows) + 1)
+        rows.append((one - b1 ** count, one - b2 ** count))
+    bc = np.array(rows, dtype=np.float32)
+    out = np.concatenate([bc, (1.0 / bc.astype(np.float64)).astype(np.float32)], axis=1)
+    out.flags.writeable = False
+    return out
 
 
 class DualOptimizer(torch.optim.Optimizer):
@@ -67,10 +126,13 @@ class DualOptimizer(torch.optim.Optimizer):
             [dict(params=groups["cnn"], kind="cnn"), dict(params=groups["bert"], kind="bert")],
             defaults={},
         )
-        self.schedules = schedules
         self.momentum, self.beta1, self.beta2, self.eps = momentum, beta1, beta2, eps
         self.state_dtype = state_dtype
-        self.count = 0  # updates applied so far: the schedules' index
+        params = groups["cnn"] + groups["bert"]
+        device = params[0].device if params else torch.device("cpu")
+        self._count = 0  # updates applied so far: the schedules' index
+        self._count_t = torch.zeros((), dtype=torch.int64, device=device)
+        self.schedules = schedules  # builds the table
         self.shards: dict = {}  # ZeRO-1: {param: (axis, start, length)} this rank owns
         self.group = None  # ZeRO-1: the data group the slices are exchanged over
         for group in self.param_groups:
@@ -81,15 +143,74 @@ class DualOptimizer(torch.optim.Optimizer):
                 else:
                     self.state[p] = {"mu": zeros(), "nu": zeros()}
 
-    def _sgd(self, owners, params, grads, lr: float, wd: float):
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count = int(value)
+        self._count_t.fill_(self._count)
+
+    def advance_host_count(self, updates: int) -> None:
+        """Move the host's count alone by ``updates``: a replayed CUDA graph
+        of the train step advances the device counter itself, and a capture
+        runs no update (``-1`` undoes the count its Python added)."""
+        self._count += updates
+
+    @property
+    def table(self) -> torch.Tensor:
+        """The schedule table the update reads: a new tensor whenever the
+        schedules are set."""
+        return self._table
+
+    @property
+    def schedules(self) -> dict:
+        return self._schedules
+
+    @schedules.setter
+    def schedules(self, schedules: dict) -> None:
+        """Set the schedule arrays and build the table the update reads: row
+        ``n`` holds update ``n``'s ``-lr`` and ``wd`` of each group (the
+        schedules' last value past their end), Adam's bias corrections
+        ``1 − β^(n+1)`` in fp32, as the JAX package computes them, and their
+        reciprocals. The rows run until the corrections reach 1, so the last
+        row holds for every later update (at most ``_MAX_ROWS``)."""
+        self._schedules = schedules
+        corrections = _bias_corrections(float(self.beta1), float(self.beta2))
+        rows = max(len(corrections), *(len(v) for v in schedules.values()))
+        held = lambda a: np.pad(a, ((0, rows - len(a)),) + ((0, 0),) * (a.ndim - 1), mode="edge")
+        table = np.empty((rows, 8), dtype=np.float32)
+        for col, name, sign in ((_NEG_LR_CNN, "lr_cnn", -1), (_WD_CNN, "wd_cnn", 1),
+                                (_NEG_LR_BERT, "lr_bert", -1), (_WD_BERT, "wd_bert", 1)):
+            # schedule_value's fp32 value of each row; the sign flips exactly
+            table[:, col] = sign * held(np.asarray(schedules[name]).astype(np.float32))
+        table[:, _BC1:] = held(corrections)
+        self._host_table = table
+        self._table = torch.from_numpy(table).to(self._count_t.device)
+
+    def _row(self, device) -> list:
+        """This update's scalars: under CUDA graph capture, 0-d views of the
+        table's row at the device counter (a gather: indexing by a 0-d
+        tensor would read it back), else the row at ``count`` as host
+        floats. The table and the counter follow the parameters to their
+        device (an eager update moves them, before any capture)."""
+        if self._count_t.device != device:
+            self._count_t, self._table = self._count_t.to(device), self._table.to(device)
+        last = self._host_table.shape[0] - 1
+        if not _capturing():
+            return [float(v) for v in self._host_table[min(self._count, last)]]
+        return list(self._table.index_select(0, self._count_t.clamp(max=last).reshape(1))[0])
+
+    def _sgd(self, owners, params, grads, neg_lr, wd):
         bufs = [self.state[p]["momentum"] for p in owners]
-        g = torch._foreach_add(grads, params, alpha=wd)      # grad + wd·p
+        g = _axpy(grads, wd, params, out=True)              # grad + wd·p
         buf = torch._foreach_mul(_f32(bufs), self.momentum)  # momentum·b + g
         torch._foreach_add_(buf, g)
-        torch._foreach_add_(params, buf, alpha=-lr)
+        _axpy(params, neg_lr, buf)
         _store(bufs, buf)
 
-    def _adamw(self, owners, params, grads, lr: float, wd: float):
+    def _adamw(self, owners, params, grads, neg_lr, wd, bc1, bc2, inv_bc1, inv_bc2):
         b1, b2 = self.beta1, self.beta2
         mus = [self.state[p]["mu"] for p in owners]
         nus = [self.state[p]["nu"] for p in owners]
@@ -97,18 +218,14 @@ class DualOptimizer(torch.optim.Optimizer):
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
         nu = torch._foreach_mul(_f32(nus), b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-        # bias corrections in fp32, as the JAX package computes them
-        count = np.float32(self.count + 1)
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** count)
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** count)
         # u = (mu / bc1) / (sqrt(nu / bc2) + eps); p -= lr·(u + wd·p)
-        denom = torch._foreach_div(nu, bc2)
+        denom = _divide(nu, bc2, inv_bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, bc1)
+        upd = _divide(mu, bc1, inv_bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_add_(upd, params, alpha=wd)
-        torch._foreach_add_(params, upd, alpha=-lr)
+        _axpy(upd, wd, params)
+        _axpy(params, neg_lr, upd)
         _store(mus, mu)
         _store(nus, nu)
 
@@ -148,6 +265,7 @@ class DualOptimizer(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, grad_scale: torch.Tensor | None = None):
+        row = None
         for group in self.param_groups:
             kind = group["kind"]
             owners = [p for p in group["params"] if p.grad is not None]
@@ -157,16 +275,21 @@ class DualOptimizer(torch.optim.Optimizer):
             grads = _f32([self._owned(p.grad, p) for p in owners])
             if grad_scale is not None:
                 grads = torch._foreach_mul(grads, grad_scale)
-            lr = schedule_value(self.schedules[f"lr_{kind}"], self.count)
-            wd = schedule_value(self.schedules[f"wd_{kind}"], self.count)
-            (self._sgd if kind == "cnn" else self._adamw)(owners, params, grads, lr, wd)
+            if row is None:
+                row = self._row(owners[0].device)
+            if kind == "cnn":
+                self._sgd(owners, params, grads, row[_NEG_LR_CNN], row[_WD_CNN])
+            else:
+                self._adamw(owners, params, grads, row[_NEG_LR_BERT], row[_WD_BERT],
+                            *row[_BC1:])
         if self.shards:  # every rank takes the others' updated slices
             all_gather_slices({p: self._owned(p, p) for p in self.shards}, self.shards,
                               out={p: p for p in self.shards}, group=self.group)
-        self.count += 1
+        self._count_t += 1
+        self._count += 1
 
-    _OWN = ("schedules", "momentum", "beta1", "beta2", "eps", "state_dtype", "count", "shards",
-            "group")
+    _OWN = ("_schedules", "_host_table", "_table", "momentum", "beta1", "beta2", "eps",
+            "state_dtype", "_count", "_count_t", "shards", "group")
 
     def __getstate__(self):  # the base class keeps only its own fields
         state = super().__getstate__()

@@ -3,8 +3,8 @@
 
 Cosine decay with optional linear warm-up, and a step schedule with
 per-epoch boundaries, as arrays with one value per iteration. The optimizer
-indexes them with a host step counter; steps past the end hold the last
-value.
+copies them into a device table indexed by its step counter
+(``train/optim.py``); steps past the end hold the last value.
 """
 
 from __future__ import annotations

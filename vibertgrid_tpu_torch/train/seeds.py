@@ -21,6 +21,12 @@ The order of the draws in one training forward of
 3. the field-type head. Simplified: the pos/neg OHEM loss, then the class
    OHEM loss (2 draws). Full: the gate's random-sample loss, then one per
    class 1..C−1 for the binary OHEM losses (1 + (C−1) draws). CRF: none.
+
+The train step hands its sites their seeds on the device
+(:class:`DeviceSeeds`): it draws the step's seeds from its stream on the
+host, in the order above, and copies them in one int32 tensor to the device
+(:func:`upload`); site *i* reads slot *i*. The masks are those of the int
+seeds, and a CUDA graph of the step reads the slots its replay refills.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from __future__ import annotations
 from typing import Iterable
 
 import torch
+
+from vibertgrid_tpu_torch.ops.dropout import _i32
 
 _INT32_MAX = 2**31 - 1
 
@@ -63,3 +71,34 @@ class ReplaySeeds:
             raise IndexError(f"ReplaySeeds: only {len(self._seeds)} seeds were given")
         self._at += 1
         return self._seeds[self._at - 1]
+
+
+class DeviceSeeds:
+    """A train step's seeds as its sites read them: ``next()`` → the next
+    slot of ``slots`` (an int32 tensor, one slot a draw), a 0-d view."""
+
+    def __init__(self, slots: torch.Tensor):
+        self.slots = slots
+        self.drawn = 0
+
+    def next(self) -> torch.Tensor:
+        if self.drawn >= self.slots.numel():
+            raise IndexError(f"DeviceSeeds: the step has {self.slots.numel()} seeds")
+        self.drawn += 1
+        return self.slots[self.drawn - 1]
+
+
+def upload(seeds, count: int, device, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The next ``count`` draws of ``seeds`` (``next() -> int``) as int32
+    (wrapped) in one tensor on ``device``: slot *i* is the *i*-th draw. On
+    the card they are copied from pinned memory without waiting, into
+    ``out`` when given (a CUDA graph's static seeds)."""
+    host = torch.tensor([_i32(seeds.next()) for _ in range(count)], dtype=torch.int32)
+    device = torch.device(device)
+    if device.type != "cuda":
+        host = host.to(device)
+        return host if out is None else out.copy_(host)
+    host = host.pin_memory()
+    if out is None:
+        return host.to(device, non_blocking=True)
+    return out.copy_(host, non_blocking=True)

@@ -1,16 +1,39 @@
 """Train state and the train / eval / inference steps (port of
 ``vibertgrid_tpu/train/state.py``).
 
-A step is plain eager PyTorch: forward, backward, the conditional gradient
-clip, both optimizer updates and the BatchNorm statistics. Unlike the JAX
-package's pure step, it updates the model and the optimizer state **in
-place** and returns the same :class:`TrainState` object. Nothing in a step
-reads a value back from the device: the clip decision is a ``torch.where``
-on the device, the schedules are indexed by a host counter, and the loss is
-returned as a 0-d tensor the caller may fetch when it wants to. Under a
-profiler the step records its ranges (``train_step`` with ``forward``,
-``backward`` and ``optimizer``; :mod:`vibertgrid_tpu_torch.utils.profiling`),
-and the syncs its thread makes are counted, which tests that claim.
+A step is forward, backward, the conditional gradient clip, both optimizer
+updates and the BatchNorm statistics. Unlike the JAX package's pure step, it
+updates the model and the optimizer state **in place** and returns the same
+:class:`TrainState` object. Nothing in a step reads a value back from the
+device or copies one from the host but its seeds: the clip decision is a
+``torch.where`` on the device, the dropout sites and the sampled losses read
+the step's seeds from one int32 tensor uploaded from pinned memory
+(:class:`~vibertgrid_tpu_torch.train.seeds.DeviceSeeds`), the optimizer reads
+its learning rates, weight decays and bias corrections from a device table
+at a device counter, and the loss is returned as a 0-d tensor the caller
+may fetch when it wants to.
+
+On the card, in one process, each batch shape's whole step is one CUDA
+graph: the first step of a shape runs eagerly on a side stream (its real
+update, and the warm-up of the libraries' choices and workspaces), then the
+same body is captured for that shape without running; every later step of
+the shape copies its batch into the graph's inputs, uploads its seeds and
+replays the graph, with at most two replays in flight. The graphs share one
+memory pool and one set of gradient buffers, which each graph copies its
+gradients to after its backward and a replay hands to the parameters'
+``.grad``, as an eager step leaves them; so a graph holds only its inputs
+and its loss. At most 32 graphs are made; the shapes first seen after that
+run eagerly (replacing graphs as shapes come and go cost more captures
+than the replays saved, on the driver's multi-scale batches). CPU steps
+and steps under a process group (data or tensor parallelism, whose
+collectives run inside the step) stay eager; all take the same values.
+Under a profiler the step records its ranges (``train_step`` with
+``forward``, ``backward`` and ``optimizer``;
+:mod:`vibertgrid_tpu_torch.utils.profiling`), the ``train_step`` range
+marked ``replayed``, ``captured`` or ``eager``. A replayed step's inner
+ranges carry the device intervals its graph's timing events measure, and no
+host interval: the host issues nothing for them. The syncs its thread
+makes are counted, which tests that claim.
 
 When a process group exists, the train step is the data-parallel one: the
 forward and backward run inside
@@ -28,18 +51,26 @@ group, which computes them from the same values.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import weakref
 
 import torch
 import torch.distributed as dist
 
 from vibertgrid_tpu_torch.models.vibertgrid import Batch, ViBERTgridNet
+from vibertgrid_tpu_torch.ops import kernels
 from vibertgrid_tpu_torch.parallel.collectives import average_gradients, global_batch
 from vibertgrid_tpu_torch.parallel.mesh import Layout, current_layout
 from vibertgrid_tpu_torch.parallel.sharding import param_shardings, reduce_scatter_mean
 from vibertgrid_tpu_torch.train.optim import DualOptimizer
+from vibertgrid_tpu_torch.train.seeds import DeviceSeeds, upload
+from vibertgrid_tpu_torch.utils import profiling
 from vibertgrid_tpu_torch.utils.profiling import span
+
+_RUN_AHEAD = 2  # replays in flight at most
+_GRAPHS = 32    # graphs kept at most
 
 
 @dataclasses.dataclass
@@ -136,6 +167,37 @@ def _replicas_agree(layout: Layout | None):
                    deterministic=True, allow_tf32=c.allow_tf32)
 
 
+class _Counted:
+    """A seed stream that counts its draws: a model's first step learns how
+    many seeds a step draws."""
+
+    def __init__(self, seeds):
+        self.seeds, self.drawn = seeds, 0
+
+    def next(self) -> int:
+        self.drawn += 1
+        return self.seeds.next()
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One batch shape's captured step and the tensors it reads and writes."""
+
+    graph: torch.cuda.CUDAGraph
+    batch: Batch            # the static inputs, refilled before each replay
+    seeds: torch.Tensor     # [n] int32, the static seeds, refilled likewise
+    loss: torch.Tensor      # the static loss, written by each replay
+    grads: list             # (parameter, the shared buffer its gradient goes to, or None)
+    table: torch.Tensor     # the optimizer's schedule table the graph reads
+    marks: profiling.Marks  # the timing events of its ranges
+
+
+def _signature(state: TrainState, batch: Batch) -> tuple:
+    return (id(state.model), id(state.optimizer)) + tuple(
+        (tuple(t.shape), t.dtype) for t in (getattr(batch, f.name)
+                                           for f in dataclasses.fields(batch)))
+
+
 def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
     """``train_step(state, batch, seeds) -> (state, loss)``: one update of
     ``state`` in place. ``seeds``: the step's seed stream (``next() -> int``)
@@ -144,26 +206,151 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
     before this is called) the step is data-parallel over its data group,
     each data rank passing its share of the global batch and every rank the
     same seeds; the layout is the model's (``ModelConfig.mesh``) where it has
-    one, else :func:`~vibertgrid_tpu_torch.parallel.mesh.current_layout`."""
+    one, else :func:`~vibertgrid_tpu_torch.parallel.mesh.current_layout`.
+
+    On the card without a process group each batch shape's step becomes a
+    CUDA graph after its first sight (see the module docstring); the loss
+    returned is the caller's own tensor, which later steps do not touch."""
     parallel = dist.is_available() and dist.is_initialized()
+    draws = weakref.WeakKeyDictionary()  # model -> seeds a step draws
+    graphs: dict = {}   # batch signature -> _Graph
+    buffers: dict = {}  # parameter -> the gradient buffer every graph writes
+    inflight: collections.deque = collections.deque()
+    side = pool = None
+
+    def body(state: TrainState, batch: Batch, seeds, into: dict | None = None) -> torch.Tensor:
+        """The step. ``into``: buffers ``{parameter: tensor}`` that the
+        gradients are copied to after the backward, and read from after."""
+        model, optimizer = state.model, state.optimizer
+        layout = model.config.mesh or (current_layout() if parallel else None)
+        split = frozenset(p for p, ax in param_shardings(model, layout).items()
+                          if ax is not None)
+        optimizer.zero_grad(set_to_none=True)
+        with global_batch(parallel, layout), _replicas_agree(layout):
+            out = model(batch, train=True, compute_loss=True, seeds=seeds)
+            loss = out.total_loss
+            with span("backward"):
+                loss.backward()
+        if into is not None:
+            got = [p for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
+            if any(p not in into for p in got):
+                raise RuntimeError("the step gave a gradient to a parameter with no buffer")
+            torch._foreach_copy_([into[p] for p in got], [p.grad for p in got])
+            for p in got:
+                p.grad = into[p]
+        with span("optimizer"):
+            apply_gradients(optimizer, loss, parallel, loss_clip_tresh, clip_norm, layout, split)
+        return loss.detach()
+
+    def eager(state: TrainState, batch: Batch, seeds) -> torch.Tensor:
+        """The body with the step's seeds on the device once the model's
+        number of draws is known, else with the stream's ints, counted."""
+        model = state.model
+        n = draws.get(model)
+        if n is None:
+            counted = _Counted(seeds)
+            loss = body(state, batch, counted)
+            draws[model] = counted.drawn
+            return loss
+        on_device = DeviceSeeds(upload(seeds, n, batch.images.device))
+        loss = body(state, batch, on_device)
+        if on_device.drawn != n:
+            raise RuntimeError(f"the step drew {on_device.drawn} seeds, not {n}")
+        return loss
+
+    def capture(state: TrainState, batch: Batch) -> _Graph:
+        """Capture the body for ``batch``'s shape without running it, right
+        after an eager step of that shape, whose gradients are handed back
+        after. The gradients the graph makes in its pool are copied to
+        buffers that every graph shares, made outside the pool for the
+        parameters that eager step gave a gradient."""
+        nonlocal pool
+        optimizer = state.optimizer
+        dev = batch.images.device
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        eager_grads = [p.grad for p in params]
+        for p, grad in zip(params, eager_grads):
+            if grad is not None and p not in buffers:
+                buffers[p] = torch.empty_like(grad)
+        static = Batch(**{f.name: torch.empty_like(getattr(batch, f.name))
+                          for f in dataclasses.fields(batch)})
+        slots = torch.empty(draws[state.model], dtype=torch.int32, device=dev)
+        pool = pool if pool is not None else torch.cuda.graph_pool_handle()
+        graph, marks = torch.cuda.CUDAGraph(), profiling.Marks()
+        count, launched = optimizer.count, dict(kernels.LAUNCHES)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(side), profiling.marking(marks):
+                # thread-local: the loader's thread may pin and copy meanwhile
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    loss = body(state, static, DeviceSeeds(slots), into=buffers)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            grads = [(p, p.grad) for p in params]
+        finally:  # the capture ran nothing: no update, no launch
+            optimizer.advance_host_count(count - optimizer.count)
+            kernels.LAUNCHES.update(launched)
+            for p, grad in zip(params, eager_grads):
+                p.grad = grad
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return _Graph(graph, static, slots, loss, grads, optimizer.table, marks)
+
+    def replay(state: TrainState, batch: Batch, seeds, entry: _Graph) -> torch.Tensor:
+        """Refill the graph's inputs and replay it. Its kernels are not
+        counted in ``kernels.LAUNCHES``: the host launches none of them."""
+        dev = batch.images.device
+        for f in dataclasses.fields(batch):
+            getattr(entry.batch, f.name).copy_(getattr(batch, f.name))
+        upload(seeds, entry.seeds.numel(), dev, out=entry.seeds)
+        if len(inflight) >= _RUN_AHEAD:
+            inflight.popleft().synchronize()
+        profiling.replay(entry.graph, entry.marks)
+        done = torch.cuda.Event()
+        done.record()
+        inflight.append(done)
+        state.optimizer.advance_host_count(1)
+        for p, grad in entry.grads:  # the step's gradients, as an eager step leaves them
+            p.grad = grad
+        return entry.loss.clone()
+
+    def graphed(state: TrainState, batch: Batch, seeds) -> tuple[torch.Tensor, str]:
+        nonlocal side, pool
+        key = _signature(state, batch)
+        entry = graphs.get(key)
+        if entry is not None and entry.table is state.optimizer.table:
+            return replay(state, batch, seeds, entry), "replayed"
+        dev = batch.images.device
+        side = side if side is not None else torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            loss = eager(state, batch, seeds)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        loss.record_stream(torch.cuda.current_stream(dev))  # the caller reads it there
+        if entry is None and len(graphs) >= _GRAPHS:
+            return loss, "eager"  # the cache is full: later shapes stay eager
+        if entry is not None:  # the optimizer's schedules were set anew
+            while inflight:  # a graph is dropped only once no replay of it runs
+                inflight.popleft().synchronize()
+            del graphs[key]
+            if not graphs:  # the pool went with its last graph
+                pool = None
+        graphs[key] = capture(state, batch)
+        return loss, "captured"
 
     def train_step(state: TrainState, batch: Batch, seeds):
-        with span("train_step", step=True):
-            model, optimizer = state.model, state.optimizer
-            layout = model.config.mesh or (current_layout() if parallel else None)
-            split = frozenset(p for p, ax in param_shardings(model, layout).items()
-                              if ax is not None)
-            optimizer.zero_grad(set_to_none=True)
-            with global_batch(parallel, layout), _replicas_agree(layout):
-                out = model(batch, train=True, compute_loss=True, seeds=seeds)
-                loss = out.total_loss
-                with span("backward"):
-                    loss.backward()
-            with span("optimizer"):
-                apply_gradients(optimizer, loss, parallel, loss_clip_tresh, clip_norm, layout,
-                                split)
+        with span("train_step", step=True) as record:
+            if parallel or batch.images.device.type != "cuda":
+                loss, mode = eager(state, batch, seeds), "eager"
+            else:
+                loss, mode = graphed(state, batch, seeds)
+            if record is not None:
+                record.mode = mode
             state.step += 1
-            return state, loss.detach()
+            return state, loss
 
     return train_step
 

@@ -7,6 +7,14 @@
   ``encoder``, ``upload``, ...). Tracing is on exactly while a
   ``torch.profiler`` session records; otherwise a span reads one flag and
   returns a shared no-op context, recording and allocating nothing.
+- :func:`marking` and :func:`replay`: the ranges of a CUDA graph. While a
+  graph is captured under :func:`marking`, each span opened on the
+  capturing thread records a timing event at its start and end into the
+  graph (:class:`Marks`), so that every replay times it on the device;
+  :func:`replay` replays the graph and, while tracing is on, records those
+  ranges as spans of the innermost open span, with the replay's device
+  intervals and no host interval (the host issued nothing for them). A
+  span opened in any other capture records nothing.
 - :func:`spans`: the ranges recorded, each with its host interval and, on
   the card, its device interval; :func:`clear` forgets them.
 
@@ -59,11 +67,12 @@ class Span:
     parent: int | None      # index in spans() of the enclosing span on the same thread
     step: int | None        # id of the train step it lies in, None outside any step
     thread: int             # threading.get_ident() of the thread that opened it
-    host_start_ns: int
-    host_end_ns: int | None = None      # None while open
+    host_start_ns: int | None           # None for a range replayed from a CUDA graph
+    host_end_ns: int | None = None      # None while open, and for a replayed range
     device_start_ns: int | None = None  # None without CUDA, or until spans() reads it
     device_end_ns: int | None = None
     syncs: int = 0          # synchronising calls made while it was the innermost open span
+    mode: str | None = None  # train_step: "replayed", "captured" or "eager" (train/state.py)
     _events: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
 
@@ -87,6 +96,41 @@ class _Range:
         return False
 
 
+class Marks:
+    """The ranges of one CUDA graph: ``(name, index of the enclosing range
+    or None, start event, end event)`` in the order they opened, the events
+    external timing events recorded inside the graph."""
+
+    def __init__(self):
+        self.ranges: list[tuple] = []
+        self.last = None       # the event the capture recorded last
+        self.pending = None    # (anchor, [(span, start, end)]) of a traced replay not yet read
+        self._open: list[int] = []
+
+
+class _Mark:
+    """A span opened while its thread captures under :func:`marking`."""
+
+    def __init__(self, marks: Marks, name: str):
+        self.marks, self.name = marks, name
+
+    def __enter__(self):
+        marks = self.marks
+        start, end = (torch.cuda.Event(enable_timing=True, external=True) for _ in range(2))
+        start.record()
+        self.index = len(marks.ranges)
+        marks.ranges.append((self.name, marks._open[-1] if marks._open else None, start, end))
+        marks._open.append(self.index)
+        return None
+
+    def __exit__(self, *exc):
+        end = self.marks.ranges[self.index][3]
+        end.record()
+        self.marks.last = end
+        self.marks._open.pop()
+        return False
+
+
 class Recorder:
     """The program's spans: :func:`span`, :func:`spans` and :func:`clear`
     use the process's one recorder."""
@@ -101,6 +145,7 @@ class Recorder:
         self._armed = 0                   # open step spans over all threads
         self._stepping = None             # the open spans of the thread that armed the counter
         self._restore = None              # restores the warnings and the sync mode
+        self._replays: list[Marks] = []   # graphs with a traced replay not yet read
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -159,6 +204,41 @@ class Recorder:
                 break
         self._anchor = (event, after)
 
+    def _replayed(self, marks: Marks) -> None:
+        """Spans for the ranges of a replay just issued, in the innermost
+        open span of this thread; their device intervals are read later."""
+        stack = self._stack()
+        with self._lock:
+            if self._anchor is None:
+                self._place_anchor()
+            base = len(self._spans)
+            parent, outer = stack[-1] if stack else (None, None)
+            if parent is not None and (parent >= base or self._spans[parent] is not outer):
+                parent = outer = None  # opened before the last clear()
+            pending = []
+            for name, inner, start, end in marks.ranges:
+                record = Span(name=name, parent=parent if inner is None else base + inner,
+                              step=outer.step if outer else None,
+                              thread=threading.get_ident(), host_start_ns=None)
+                self._spans.append(record)
+                pending.append((record, start, end))
+            marks.pending = (self._anchor, pending)
+            if not any(m is marks for m in self._replays):
+                self._replays.append(marks)
+
+    def _settle(self, marks: Marks) -> None:
+        """Read the device intervals of ``marks``' last traced replay (this
+        waits for that replay), before a new replay records over them."""
+        with self._lock:
+            taken, marks.pending = marks.pending, None
+        if taken is None:
+            return
+        (event, at), pending = taken
+        marks.last.synchronize()
+        for record, start, end in pending:
+            record.device_start_ns = at + round(event.elapsed_time(start) * 1e6)
+            record.device_end_ns = at + round(event.elapsed_time(end) * 1e6)
+
     # ---- the sync counter ----
 
     def _arm(self, stack: list) -> None:
@@ -215,6 +295,9 @@ class Recorder:
         (this waits for the device)."""
         with self._lock:
             out, anchor = list(self._spans), self._anchor
+            replays, self._replays = self._replays, []
+        for marks in replays:
+            self._settle(marks)
         pending = [s for s in out if s._events is not None and s.host_end_ns is not None]
         if pending and anchor is not None:
             torch.cuda.synchronize()
@@ -231,6 +314,9 @@ class Recorder:
             self._spans = []
             self._steps = 0
             self._anchor = None
+            for marks in self._replays:
+                marks.pending = None
+            self._replays = []
 
 
 _RECORDER = Recorder()
@@ -240,9 +326,46 @@ def span(name: str, step: bool = False):
     """A context manager: the range ``name`` of the program, recorded while
     a ``torch.profiler`` session records, else a shared no-op. ``step``:
     the range is a train step (a new step id; its thread's syncs counted)."""
+    if _MARKING:
+        marks = getattr(_LOCAL, "marks", None)
+        if marks is not None:
+            return _Mark(marks, name)
     if not _autograd_profiler._is_profiler_enabled:
         return _NOOP
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+        return _NOOP
     return _Range(_RECORDER, name, step)
+
+
+_MARKING = 0                   # threads inside marking(), read first by span()
+_LOCAL = threading.local()     # .marks: what this thread's capture records into
+
+
+@contextlib.contextmanager
+def marking(marks: Marks):
+    """For the ``with`` block, the spans this thread opens record their
+    ranges into ``marks``: open it around a CUDA graph's capture."""
+    global _MARKING
+    with _RECORDER._lock:
+        _MARKING += 1
+    _LOCAL.marks = marks
+    try:
+        yield marks
+    finally:
+        _LOCAL.marks = None
+        with _RECORDER._lock:
+            _MARKING -= 1
+
+
+def replay(graph, marks: Marks) -> None:
+    """Replay ``graph``, captured under :func:`marking` into ``marks``; while
+    tracing is on, its ranges become spans of this thread's innermost open
+    span. The last traced replay of the same graph is read first (waiting
+    for it, where it still runs), as this one records over its events."""
+    _RECORDER._settle(marks)
+    graph.replay()
+    if _autograd_profiler._is_profiler_enabled and marks.ranges and marks.last is not None:
+        _RECORDER._replayed(marks)
 
 
 def spans() -> list[Span]:

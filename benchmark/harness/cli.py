@@ -71,6 +71,33 @@ def benchmark_entries(cell: str) -> tuple[list, list]:
     return e2e, layer
 
 
+def check_encoder(config: dict, config_path: str) -> None:
+    """Fail before set-up unless the configuration's ``model`` names its text
+    encoder and window, and the encoder has its reference and its counts
+    (``benchmark/reference/encoders/<name>.py``,
+    ``benchmark/harness/encoders/<name>.py``)."""
+    model = config["model"]
+    for key in ("text_encoder", "window_tokens"):
+        if key not in model:
+            raise SystemExit(f"{config_path}: model.{key} is missing")
+    window = model["window_tokens"]
+    if not isinstance(window, int) or isinstance(window, bool) or window < 1:
+        raise SystemExit(f"{config_path}: model.window_tokens {window!r} is not a positive "
+                         "whole number")
+    name = model["text_encoder"]
+    if not isinstance(name, str) or not name.isidentifier():
+        raise SystemExit(f"{config_path}: model.text_encoder {name!r} is not a module name")
+    for part in ("reference", "harness"):
+        module = f"benchmark.{part}.encoders.{name}"
+        try:
+            importlib.import_module(module)
+        except ModuleNotFoundError as e:
+            if e.name != module:
+                raise
+            raise SystemExit(f"no text encoder {name!r}: benchmark/{part}/encoders/{name}.py "
+                             "is missing") from None
+
+
 def reader(name: str):
     path = os.path.join(HERE, "metrics", name + ".py")
     spec = importlib.util.spec_from_file_location("benchmark_metric_" + name.replace(".", "_"),
@@ -139,6 +166,7 @@ def run(argv=None, *, t0: float | None = None, device: str = "cuda",
     config = _load("configs", cell["config"])
     mix = _load("traffic", cell["traffic"])
     apply_overrides(cell, config, mix, overrides)
+    check_encoder(config, f"benchmark/configs/{cell['config']}.json")
     chips = int(cell["chips"])
     if device == "cuda":
         if not torch.cuda.is_available() or torch.cuda.device_count() < chips:

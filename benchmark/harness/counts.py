@@ -5,8 +5,8 @@ implements them, and takes nothing from the program.
 
 Model FLOPs of a forward (one multiply-add is 2 operations):
 
-- the text encoder, per 512-position window: the Q, K, V and output
-  projections, ``QK^T`` and ``PV`` over all 512 positions, the FFN;
+- the text encoder: its file under ``benchmark/harness/encoders/``, named by
+  the configuration's ``model.text_encoder``, which also counts its kernels;
 - every convolution of the ResNet trunk, the BERTgrid early fusion, the FPN
   and the P_fuse projection, at the canvas size;
 - the RoI head (two 3x3 convolutions on each 7x7 RoI and its linear layer),
@@ -26,11 +26,11 @@ written once (``benchmark/peaks.json``).
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WINDOW = 512          # positions a window: 510 tokens, [CLS] and [SEP]
 BF16, F32 = 2, 4
 
 
@@ -46,7 +46,8 @@ class Shape:
     b: int          # documents, padding rows included
     h: int          # canvas height, pixels
     w: int          # canvas width
-    n_win: int      # 510-token windows a document
+    tokens: int     # token positions a document, padding included
+    window: int     # tokens a window (the configuration's ``window_tokens``)
     s: int          # segment slots a document
     train: bool = False
 
@@ -55,10 +56,8 @@ class Shape:
 class Model:
     """The sizes the counts read, from a configuration file's ``model``."""
 
-    hidden: int
-    layers: int
-    heads: int
-    intermediate: int
+    text_encoder: str       # the file of benchmark/harness/encoders/
+    encoder: object         # that file's sizes(model)
     blocks: tuple           # ResNet basic blocks of stages 2-5
     classes: int
     head: str               # "simp" | "full"
@@ -69,11 +68,21 @@ class Model:
     @staticmethod
     def of(config: dict) -> "Model":
         m = config["model"]
-        return Model(hidden=m["hidden_size"], layers=m["num_hidden_layers"],
-                     heads=m["num_attention_heads"], intermediate=m["intermediate_size"],
+        return Model(text_encoder=m["text_encoder"],
+                     encoder=encoder_of(m["text_encoder"]).sizes(m),
                      blocks=tuple(m["resnet_blocks"]), classes=m["num_classes"],
                      head=m["classifier_mode"], roi=m.get("roi_shape", 7),
                      fusion=m.get("late_fusion_fuse_embedding_channel", 1024))
+
+    @property
+    def width(self) -> int:
+        """The token states' width: the BERTgrid's channels."""
+        return self.encoder.width
+
+
+def encoder_of(name: str):
+    """The counts of the text encoder ``name``."""
+    return importlib.import_module("benchmark.harness.encoders." + name)
 
 
 def _conv(b, h, w, c_out, c_in, k):
@@ -81,11 +90,7 @@ def _conv(b, h, w, c_out, c_in, k):
 
 
 def encoder_flops(m: Model, x: Shape) -> float:
-    seqs = x.b * x.n_win
-    n = seqs * WINDOW
-    d, f = m.hidden, m.intermediate
-    per_layer = 2 * n * d * 4 * d + 4 * seqs * WINDOW * WINDOW * d + 4 * n * d * f
-    return m.layers * per_layer
+    return encoder_of(m.text_encoder).forward_flops(m, x)
 
 
 def backbone_flops(m: Model, x: Shape) -> float:
@@ -102,7 +107,7 @@ def backbone_flops(m: Model, x: Shape) -> float:
             if i == 0 and first != c:  # the shortcut's 1x1 projection
                 total += _conv(b, hh, ww, c, first, 1)
             if stage == 1 and i == 0:  # early fusion after stage 3's first block
-                total += _conv(b, hh, ww, 128, 128 + m.hidden, 1)
+                total += _conv(b, hh, ww, 128, 128 + m.width, 1)
         c_in = c
     p = m.pyramid
     total += _conv(b, h // 32, w // 32, p, 512, 1)  # conv6
@@ -117,7 +122,7 @@ def head_flops(m: Model, x: Shape) -> float:
     rows = x.b * x.s
     roi = 2 * _conv(rows, m.roi, m.roi, m.pyramid, m.pyramid, 3)
     roi += 2 * rows * m.roi * m.roi * m.pyramid * m.fusion
-    fuse = 2 * rows * (m.fusion + m.hidden) * m.fusion
+    fuse = 2 * rows * (m.fusion + m.width) * m.fusion
     c = m.classes
     if m.head == "simp":  # two-layer MLPs; pos/neg only with the losses
         field = 2 * rows * (m.fusion * (m.fusion // 2) + (m.fusion // 2) * c)
@@ -145,63 +150,31 @@ def step_flops(m: Model, x: Shape) -> float:
 
 # ---- one kernel call: (flops, bytes) ----
 
-def attention(m: Model, x: Shape) -> tuple[float, float]:
-    """Attention forward of one layer over every window: Q, K, V read, the
-    output written (bf16), the key bias read (fp32 a position), and in
-    training the log-sum-exp of each row written (fp32)."""
-    seqs = x.b * x.n_win
-    flops = 4 * seqs * WINDOW * WINDOW * m.hidden
-    nbytes = 4 * seqs * WINDOW * m.hidden * BF16 + seqs * WINDOW * F32
-    if x.train:
-        nbytes += seqs * m.heads * WINDOW * F32
-    return flops, nbytes
-
-
-def attention_bwd(m: Model, x: Shape) -> tuple[float, float]:
-    """Attention backward of one layer: ``QK^T`` again, ``dV``, ``dP``,
-    ``dQ``, ``dK`` (2.5 forwards); Q, K, V, O, dO and the log-sum-exp read,
-    dQ, dK, dV written, the bias's gradient written (fp32)."""
-    seqs = x.b * x.n_win
-    flops = 10 * seqs * WINDOW * WINDOW * m.hidden
-    nbytes = (8 * seqs * WINDOW * m.hidden * BF16 + seqs * m.heads * WINDOW * F32
-              + 2 * seqs * WINDOW * F32)
-    return flops, nbytes
-
-
-def _ffn(m: Model, x: Shape, saved: bool) -> tuple[float, float]:
-    n = x.b * x.n_win * WINDOW
-    d, f = m.hidden, m.intermediate
-    flops = 4 * n * d * f
-    nbytes = 2 * n * d * BF16 + 2 * d * f * BF16 + (f + 3 * d) * F32
-    if saved:  # the residuals of the backward: h1, yhat, 1/sigma
-        nbytes += n * f * BF16 + n * d * BF16 + n * F32
-    return flops, nbytes
-
-
-def ffn(m: Model, x: Shape) -> tuple[float, float]:
-    """The FFN tail of one layer, inference: x, W1, W2 read, y written."""
-    return _ffn(m, x, saved=False)
-
-
-def ffn_saved(m: Model, x: Shape) -> tuple[float, float]:
-    """The FFN tail of one layer in training, with its saved residuals."""
-    return _ffn(m, x, saved=True)
-
-
 def scatter(m: Model, x: Shape) -> tuple[float, float]:
     """The BERTgrid scatter: the segments' embeddings read, the grid at an
     eighth of the canvas written (bf16); boxes and masks read."""
-    grid = x.b * (x.h // 8) * (x.w // 8) * m.hidden * BF16
-    return 0.0, grid + x.b * x.s * m.hidden * BF16 + x.b * x.s * 5 * F32
+    grid = x.b * (x.h // 8) * (x.w // 8) * m.width * BF16
+    return 0.0, grid + x.b * x.s * m.width * BF16 + x.b * x.s * 5 * F32
 
 
-CALLS = {  # kernel kind -> (count function, calls a forward)
-    "attention": (attention, lambda m: m.layers),
-    "attention_bwd": (attention_bwd, lambda m: m.layers),
-    "ffn": (ffn, lambda m: m.layers),
-    "ffn_saved": (ffn_saved, lambda m: m.layers),
+CALLS = {  # the trunk's kernels: kind -> (count function, calls a forward)
     "scatter": (scatter, lambda m: 1),
 }
+
+
+def merged(trunk: dict, encoder: dict) -> dict:
+    """The trunk's entries and the encoder's; a kind defined twice is an error."""
+    twice = sorted(set(trunk) & set(encoder))
+    if twice:
+        raise ValueError(f"kernel kinds defined by the trunk and the text encoder: {twice}")
+    return {**trunk, **encoder}
+
+
+def calls(m: Model) -> dict:
+    """Kernel kind -> (count function, calls a forward): the trunk's
+    :data:`CALLS` and the text encoder's ``KERNELS``."""
+    own = encoder_of(m.text_encoder).KERNELS
+    return merged(CALLS, {k: (fn, n) for k, (fn, n, _) in own.items()})
 
 
 def bound_s(flops: float, nbytes: float) -> float:

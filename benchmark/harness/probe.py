@@ -18,6 +18,8 @@ import os
 import re
 import time
 
+from benchmark.harness import counts
+
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -64,11 +66,15 @@ class Probe:
 
 # ---- the profiler's timeline ----
 
-def kernel_patterns() -> dict:
-    """``{kind: regex}`` of the kernels each roofline reads
-    (``benchmark/kernels.json``)."""
+def kernel_patterns(model) -> dict:
+    """``{kind: regex}`` of the kernels each roofline reads: the trunk's
+    (``benchmark/kernels.json``) and the text encoder's (its ``KERNELS``);
+    ``model`` a ``counts.Model``."""
     with open(os.path.join(HERE, "kernels.json")) as f:
-        return {k: re.compile(v) for k, v in json.load(f)["patterns"].items()}
+        trunk = json.load(f)["patterns"]
+    own = counts.encoder_of(model.text_encoder).KERNELS
+    patterns = counts.merged(trunk, {k: pattern for k, (_, _, pattern) in own.items()})
+    return {k: re.compile(v) for k, v in patterns.items()}
 
 
 def _device_events(prof):

@@ -38,9 +38,9 @@ class _Ids:
         self.cls_token_id, self.sep_token_id = cls_id, sep_id
 
 
-def _shape(batch, train=True) -> counts.Shape:
+def _shape(batch, window: int, train=True) -> counts.Shape:
     return counts.Shape(b=batch.images.shape[0], h=batch.images.shape[1],
-                        w=batch.images.shape[2], n_win=batch.tokens.shape[1] // 510,
+                        w=batch.images.shape[2], tokens=batch.tokens.shape[1], window=window,
                         s=batch.boxes.shape[1], train=train)
 
 
@@ -69,6 +69,7 @@ def run(ctx) -> list:
     knobs = cell["train"]
     hyp = dict(config["hyp"])
     b, niter = knobs["batch"], knobs["niter_per_ep"]
+    window = config["model"]["window_tokens"]
     tokenizer = _Ids(*knobs["cls_sep"])  # ids drawn over the vocabulary: no tokenizer
     _, _, model, _, collator, _ = build_all(hyp, "sroie", tokenizer, device=device, seed=0)
     ctx.shapes = weights.shapes_of(model)
@@ -125,7 +126,7 @@ def run(ctx) -> list:
         while time.perf_counter() - start < ctx.seconds:
             with probe.span("loader_wait"):
                 batch, _ = next(feed)
-            probe.forwards.append((time.perf_counter(), _shape(batch)))
+            probe.forwards.append((time.perf_counter(), _shape(batch, window)))
             with probe.span("step"):
                 step(batch)
             probe.steps += 1
@@ -150,7 +151,8 @@ def _reference_batches(ctx, docs) -> list:
     from benchmark.reference import collate
 
     b, rng = ctx.cell["train"]["batch"], np.random.default_rng([ctx.seed & 0xFFFFFFFFFFFFFFFF, 9])
-    return [collate.batch(docs[i:i + b], ctx.config["hyp"], rng)
+    window = ctx.config["model"]["window_tokens"]
+    return [collate.batch(docs[i:i + b], ctx.config["hyp"], window, rng)
             for i in range(0, CHECKED_STEPS * b, b)]
 
 

@@ -20,7 +20,7 @@ import numpy as np
 FIELDS = ("images", "tokens", "token_mask", "seg_ids", "boxes", "box_mask", "seg_classes")
 SEG_BUCKETS = (32, 64, 128, 256, 512)
 WIN_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16)
-WINDOW, HW_MULTIPLE = 510, 64
+HW_MULTIPLE = 64
 
 
 def _bucket(n: int, ladder) -> int:
@@ -61,9 +61,11 @@ def resize_normalize(image: np.ndarray, out_h: int, out_w: int, mean, std) -> np
     return (down - mean) * inv_std
 
 
-def batch(docs: list, hyp: dict, rng: np.random.Generator) -> dict:
+def batch(docs: list, hyp: dict, window: int, rng: np.random.Generator) -> dict:
     """``docs``: ``(image [H, W, 3] in [0, 1], tokens, seg_ids, boxes [n, 4],
-    classes [n])``; the arrays of the collated batch."""
+    classes [n])``; the arrays of the collated batch, its tokens padded to
+    whole windows of ``window`` tokens (the configuration's
+    ``window_tokens``)."""
     sizes = [float(rng.choice(list(hyp["image_min_size"]))) for _ in docs]
     hws = [_output_shape(*d[0].shape[:2], m, float(hyp["image_max_size"]))
            for d, m in zip(docs, sizes)]
@@ -71,7 +73,7 @@ def batch(docs: list, hyp: dict, rng: np.random.Generator) -> dict:
     bh, bw = up(max(h for h, _ in hws)), up(max(w for _, w in hws))
     b = len(docs)
     s_cap = _bucket(max(max(len(d[4]) for d in docs), 1), SEG_BUCKETS)
-    t_cap = _bucket(-(-max(max(len(d[1]) for d in docs), 1) // WINDOW), WIN_BUCKETS) * WINDOW
+    t_cap = _bucket(-(-max(max(len(d[1]) for d in docs), 1) // window), WIN_BUCKETS) * window
     out = {"images": np.zeros((b, bh, bw, 3), np.float32),
            "tokens": np.zeros((b, t_cap), np.int32), "token_mask": np.zeros((b, t_cap), np.int32),
            "seg_ids": np.zeros((b, t_cap), np.int32), "boxes": np.zeros((b, s_cap, 4), np.int32),

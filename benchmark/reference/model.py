@@ -1,9 +1,10 @@
 """The plain reference of ViBERTgrid's training forward, written from the
 model's definition (arXiv:2105.11672 and its reference implementation's
 layers) in plain PyTorch, fp32: functions over a dict of leaf tensors named
-as the checkpoint both sides load, with no module of the port.
+as the checkpoint both sides load, with no module of the port. This file
+is the trunk; the text encoder is a file of ``encoders/``.
 
-    tokens ─ windowed RoBERTa ─ segment mean ──────┐
+    tokens ─ text encoder ─ segment mean ──────────┐
                                                    ├─ BERTgrid ─ early-fused
     image ─────────────────────────────────────────┘   ResNet-FPN ─ P_fuse
     P_fuse ─ RoIAlign ─ late fusion with the segment embeddings ─ field head
@@ -17,9 +18,10 @@ What both sides take from the configuration rather than from each other:
   state is its row-major flat index, that of an attention probability
   ``row·Tp + col`` (``Tp`` = the window length rounded up to 128) under the
   seed ``seed + window·H + head``. The seeds of a step come from
-  :func:`step_seeds` in call order: the embeddings; each layer's attention
-  probabilities, attention output and FFN output; the segmentation head's
-  sample and one a class; the field head's sample and one a class;
+  :func:`step_seeds` in call order: the text encoder's (RoBERTa's: the
+  embeddings; each layer's attention probabilities, attention output and
+  FFN output); the segmentation head's sample and one a class; the field
+  head's sample and one a class;
 - a random subsample of ``k`` elements of a category keeps the ``k``
   largest ``splitmix32(flat index, seed)`` among its members;
 - online hard example mining (OHEM) sums the ``k`` largest losses of each
@@ -33,15 +35,13 @@ What both sides take from the configuration rather than from each other:
 
 from __future__ import annotations
 
-import math
+import importlib
 
 import torch
 import torch.nn.functional as F
 
 M32 = 0xFFFFFFFF
-WINDOW = 510          # tokens of a window between its <s>/[CLS] and </s>/[SEP]
 DROPOUT = 0.1         # hidden and attention dropout of BERT-base and RoBERTa-base
-LN_EPS = 1e-12        # the encoder's LayerNorm epsilon, BERT's published value
 BN_EPS = 1e-5
 
 
@@ -137,7 +137,7 @@ def bce(logits, targets):
     return F.binary_cross_entropy_with_logits(logits, targets.float(), reduction="none")
 
 
-# ---------------------------------------------------------------- the encoder
+# ------------------------------------------------- layers the encoders share
 
 def _linear(P, name, x):
     return F.linear(x, P[name + ".weight"], P.get(name + ".bias"))
@@ -145,54 +145,6 @@ def _linear(P, name, x):
 
 def _ln(P, name, x, eps):
     return F.layer_norm(x, x.shape[-1:], P[name + ".weight"], P[name + ".bias"], eps)
-
-
-def encoder(P, ids, amask, seeds, heads: int):
-    """RoBERTa over ``[N, T]`` framed windows → ``[N, T, D]``, training
-    (dropout on)."""
-    e = "bert_model."
-    n, t = ids.shape
-    not_pad = (ids != 1).long()  # positions count from the padding id (1) + 1
-    pos = torch.cumsum(not_pad, 1) * not_pad + 1
-    x = (F.embedding(ids.long(), P[e + "word_embeddings.weight"])
-         + F.embedding(pos, P[e + "position_embeddings.weight"])
-         + P[e + "token_type_embeddings.weight"][0])
-    x = dropout(_ln(P, e + "embeddings_ln", x, LN_EPS), seeds.next())
-    bias = torch.where(amask.bool(), 0.0, -1e9)[:, None, None, :]
-    d = x.shape[-1]
-    dh = d // heads
-    split = lambda y: y.reshape(n, t, heads, dh).transpose(1, 2)
-    i = 0
-    while f"{e}layer.{i}.attention.query.weight" in P:
-        L = f"{e}layer.{i}."
-        q, k, v = (split(_linear(P, L + "attention." + m, x)) for m in ("query", "key", "value"))
-        p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh) + bias, dim=-1)
-        p = p * attention_keep(n, heads, t, seeds.next(), x.device) / (1.0 - DROPOUT)
-        ctx = torch.matmul(p, v).transpose(1, 2).reshape(n, t, d)
-        a = dropout(_linear(P, L + "attention.out", ctx), seeds.next())
-        x = _ln(P, L + "attention_ln", x + a, LN_EPS)
-        f = _linear(P, L + "output", F.gelu(_linear(P, L + "intermediate", x)))
-        x = _ln(P, L + "output_ln", x + dropout(f, seeds.next()), LN_EPS)
-        i += 1
-    return x
-
-
-def frame(tokens, token_mask, cls_id: int, sep_id: int):
-    """``[B, W·510]`` → ``[B·W, 512]`` ids and mask: ``<s>`` first, then the
-    window's tokens, ``</s>`` right after the batch's longest document's
-    share of the window (a window past it holds ``</s>`` alone)."""
-    b, t = tokens.shape
-    w = t // WINDOW
-    seq_len = int(token_mask.sum(1).max())
-    ids = torch.zeros((b * w, WINDOW + 2), dtype=torch.int64, device=tokens.device)
-    mask = torch.zeros_like(ids)
-    ids[:, 1:-1] = tokens.reshape(b * w, WINDOW)
-    mask[:, 1:-1] = token_mask.reshape(b * w, WINDOW)
-    ids[:, 0], mask[:, 0] = cls_id, 1
-    for j in range(w):
-        at = 1 + min(max(seq_len - j * WINDOW, 0), WINDOW)
-        ids[j::w, at], mask[j::w, at] = sep_id, 1
-    return ids, mask
 
 
 def segment_mean(tok, seg_ids, token_mask, s: int):
@@ -401,15 +353,16 @@ def segmentation_head(P, p_fuse, classes, boxes, box_mask, seeds, hyp):
 def forward(P, batch: dict, seeds, cfg: dict):
     """One training forward: ``(total loss, class scores [B, S, C])``.
     ``batch``: the collated arrays as tensors; ``cfg``: the configuration
-    file's ``model`` and ``hyp`` with the cell's ``cls_sep`` ids."""
+    file's ``model`` and ``hyp`` with the cell's ``cls_sep`` ids. The text
+    encoder is the file that ``model.text_encoder`` names under
+    ``benchmark/reference/encoders/``."""
     model, hyp = cfg["model"], cfg["hyp"]
-    if "roberta" not in hyp["bert_version"] or hyp["classifier_mode"] != "full":
-        raise ValueError("the reference follows RoBERTa with the two-stage head")
+    if hyp["classifier_mode"] != "full":
+        raise ValueError("the reference's trunk follows the two-stage head")
+    encoder = importlib.import_module("benchmark.reference.encoders." + model["text_encoder"])
     b, hh, ww, _ = batch["images"].shape
     s = batch["boxes"].shape[1]
-    ids, amask = frame(batch["tokens"], batch["token_mask"], *cfg["cls_sep"])
-    tok = encoder(P, ids, amask, seeds, model["num_attention_heads"])
-    tok = tok[:, 1:-1].reshape(b, -1, tok.shape[-1])
+    tok = encoder.encode(P, encoder.frame(batch["tokens"], batch["token_mask"], cfg), seeds, cfg)
     seg = segment_mean(tok, batch["seg_ids"], batch["token_mask"], s)
     stride = hyp["early_fusion_downsampling_ratio"]
     win = winners(batch["boxes"], batch["box_mask"], hh // stride, ww // stride, stride)

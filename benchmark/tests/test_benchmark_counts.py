@@ -11,10 +11,13 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from benchmark.harness import counts
 
-TINY = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
-            num_classes=5, roi_shape=7, late_fusion_fuse_embedding_channel=1024)
-FLAGSHIP = counts.Model(hidden=768, layers=12, heads=12, intermediate=3072,
-                        blocks=(3, 4, 6, 3), classes=5, head="simp")
+TINY = dict(text_encoder="roberta", hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=128, num_classes=5, roi_shape=7,
+            late_fusion_fuse_embedding_channel=1024)
+FLAGSHIP = counts.Model.of({"model": dict(
+    text_encoder="roberta", hidden_size=768, num_hidden_layers=12,
+    num_attention_heads=12, intermediate_size=3072, resnet_blocks=[3, 4, 6, 3], num_classes=5,
+    classifier_mode="simp")})
 
 
 def _batch(b, h, w, t, s, vocab, seed=0):
@@ -39,9 +42,8 @@ def _batch(b, h, w, t, s, vocab, seed=0):
 def _implementation_extras(m, x: counts.Shape) -> int:
     """Products the port computes that the model count leaves out: the segment
     mean as a product with a 0/1 matrix, RoIAlign's two dense products."""
-    t = x.n_win * 510
     hf, wf, p = x.h // 4, x.w // 4, m.roi
-    seg_mean = 2 * x.b * x.s * t * m.hidden
+    seg_mean = 2 * x.b * x.s * x.tokens * m.width
     roi_align = 2 * x.b * x.s * p * hf * wf * m.pyramid + 2 * x.b * x.s * p * p * wf * m.pyramid
     return seg_mean + roi_align
 
@@ -62,7 +64,7 @@ def test_forward_flops_match_the_ports_products(mode, backbone, blocks, bert, tr
                       sep_token_id=2 if "roberta" in bert else 102)
     net = ViBERTgridNet(cfg, device="cpu")
     m = counts.Model.of({"model": dict(TINY, resnet_blocks=list(blocks), classifier_mode=mode)})
-    x = counts.Shape(b=2, h=128, w=192, n_win=2, s=32, train=train)
+    x = counts.Shape(b=2, h=128, w=192, tokens=1020, window=510, s=32, train=train)
     batch = _batch(2, 128, 192, 1020, 32, 512)
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         net(batch, train=train, compute_loss=train, seeds=SeedStream(0) if train else None)
@@ -74,12 +76,12 @@ def test_forward_flops_match_the_ports_products(mode, backbone, blocks, bert, tr
     ("attention", 0.0150), ("ffn", 0.0782), ("scatter", 0.0235), ("attention_bwd", 0.0326)])
 def test_kernel_bounds_at_the_flagship(kind, expected_ms):
     """The bound column of PERF.md's kernel table (``chip_smoke._bound``)."""
-    fn, _ = counts.CALLS[kind]
-    x = counts.Shape(b=16, h=512, w=384, n_win=1, s=128)
+    fn, _ = counts.calls(FLAGSHIP)[kind]
+    x = counts.Shape(b=16, h=512, w=384, tokens=510, window=510, s=128)
     assert round(1e3 * counts.bound_s(*fn(FLAGSHIP, x)), 4) == expected_ms
 
 
 def test_a_train_step_counts_three_forwards_with_the_losses():
-    x = counts.Shape(b=16, h=512, w=384, n_win=1, s=128)
+    x = counts.Shape(b=16, h=512, w=384, tokens=510, window=510, s=128)
     fwd = counts.forward_flops(FLAGSHIP, dataclasses.replace(x, train=True))
     assert counts.step_flops(FLAGSHIP, x) == 3 * fwd > 3 * counts.forward_flops(FLAGSHIP, x)

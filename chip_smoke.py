@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only ffn [--tree DIR]         # build, then time kernels 2 and 5
     python3 chip_smoke.py --only proj_ln [--tree DIR]     # build, then time kernel 7
     python3 chip_smoke.py --only scatter_bwd [--tree DIR] # build, then time kernel 6
+    python3 chip_smoke.py --only update [--tree DIR]      # build, then the eager clip and update
 
 1. builds the hand-written kernels from ``vibertgrid_tpu_torch/csrc``
    (``sm_90a``) into ``build/vibertgrid_tpu_torch/``;
@@ -27,7 +28,11 @@
    ``scatter_backward_pieces``, both bit for bit, and twice for equal bits),
    and times kernel, twin and, where one PyTorch call computes the same
    function, that call (for the FFN and the epilogue, which no single call
-   computes, the chain of library calls);
+   computes, the chain of library calls); then the train step's clip norm
+   and dual update (``csrc/fused_update.cu``, no TPU counterpart) at the
+   benchmark cell's parameter set: two updates bit for bit against the
+   library passes they replace, the norm within 1e-12 of the library's,
+   and kernel, passes and byte bound timed;
 3. drives the flagship inference forward (BERT-base-uncased, ResNet-34-FPN,
    simplified head, bf16; batch 16, 512x384 images, one 510-token window,
    128 segments) through the port's entry points, checks its output and
@@ -37,7 +42,7 @@
    sampled losses, backward, SGD + AdamW with bf16 state, BatchNorm
    statistics), checks the launches of a step (attention 12, attention
    backward 12, saved-residual FFN 12, scatter 1, scatter backward 1, the
-   inference FFN 0), that loss and gradients are finite and that parameters
+   clip's norm 1, the update 1, the inference FFN 0), that loss and gradients are finite and that parameters
    and statistics moved, and reports ms a step, docs/s and the device time;
    then pins that the step is bit-repeatable: two steps from one seed give
    the same loss, every gradient and every parameter bit for bit, two
@@ -172,7 +177,10 @@ directory that ``.gitignore`` lists) and time both with one clock; ``--only
 ffn`` does it for the two FFN kernels through ``fused_ffn`` and
 ``fused_ffn_saved``, ``--only proj_ln`` for the attention epilogue through
 ``fused_proj_ln`` and ``--only scatter_bwd`` for the scatter backward through
-``grid_scatter`` and autograd.
+``grid_scatter`` and autograd. ``--only update`` times the eager clip and
+update of a train step at the benchmark cell's parameter set, host and
+device, in any tree, and where the tree has them runs the check of the
+optimizer's two kernels that the whole run makes (step 2).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -938,7 +946,10 @@ def flagship_forward(dev, records):
 
 
 TRAIN_LAUNCHES = dict(flash_attention=12, flash_attention_bwd=12, fused_ffn=0, fused_ffn_saved=12,
-                      fused_proj_ln=0, bertgrid_scatter=1, bertgrid_scatter_bwd=1)
+                      fused_proj_ln=0, bertgrid_scatter=1, bertgrid_scatter_bwd=1, grad_sq_norm=1,
+                      dual_update=1)
+# ZeRO-1's step sums the squares of its slices apart (before their all-reduce)
+ZERO1_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, grad_sq_norm=2)
 TRAIN_WATCH = ("bert_model.layer.0.intermediate.weight", "bert_model.word_embeddings.weight",
                "backbone.stem_conv.weight", "field_type_head.category_net.out.weight",
                "semantic_segmentation_head.encoder.conv1.weight")
@@ -1326,7 +1337,8 @@ DEPLOYMENT_HYP = {
     "image_max_size": 800,
 }
 SERVE_LAUNCHES = dict(flash_attention=12, flash_attention_bwd=0, fused_ffn=12, fused_ffn_saved=0,
-                      fused_proj_ln=0, bertgrid_scatter=1, bertgrid_scatter_bwd=0)
+                      fused_proj_ln=0, bertgrid_scatter=1, bertgrid_scatter_bwd=0, grad_sq_norm=0,
+                      dual_update=0)
 # Two answers to one request that the card computed in batches of other
 # shapes (or over the two wires) are compared as tests/test_serve.py compares
 # the wires: the class probabilities (the simplified head's softmax, which the
@@ -2560,7 +2572,8 @@ TP_MODEL = 2
 # a tensor-parallel step: kernels 1 and 4 on each rank's 6 heads, the FFN and
 # the epilogue as plain products (their partial sums meet before the
 # residual and the LayerNorm), the scatter and its backward once
-TP_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, fused_ffn_saved=0)
+# the split parameters' squares are summed apart (before their all-reduce)
+TP_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, fused_ffn_saved=0, grad_sq_norm=2)
 TP_VALIDATE_LAUNCHES = dict(SERVE_LAUNCHES, fused_ffn=0)
 # per layer two sums of the partial products forward and two of the input
 # gradients backward
@@ -2875,8 +2888,9 @@ def _check_bf16(records, ranks, how: str, what0: str) -> None:
         what = f"{what0}{', ZeRO-1' if zero1 else ''}"
         for rank, r in enumerate(ranks):
             b = r["_rank_bf16"][zero1]
+            want = ZERO1_TRAIN_LAUNCHES if zero1 else TRAIN_LAUNCHES
             for launches in b["launches"]:
-                _assert_launches(records, launches, TRAIN_LAUNCHES, f"{what} (rank {rank})")
+                _assert_launches(records, launches, want, f"{what} (rank {rank})")
             print(f"{what}, rank {rank} of {world} ({how}), {B // world} "
                   f"documents a rank: {b['ms']:.2f} ms a step, {B / b['ms'] * 1e3:.2f} global "
                   f"docs/s, device busy {b['device_ms']:.2f} ms a step, copies "
@@ -2996,7 +3010,8 @@ def distributed_phase(dev, records):
         for name in ("replicated", "zero1"):
             got = [r["_rank_driver"][name] for r in ranks]
             for rank, g in enumerate(got):
-                for kind, want in (("train", TRAIN_LAUNCHES), ("validate", SERVE_LAUNCHES)):
+                train = ZERO1_TRAIN_LAUNCHES if name == "zero1" else TRAIN_LAUNCHES
+                for kind, want in (("train", train), ("validate", SERVE_LAUNCHES)):
                     label = f"distributed driver {kind} {'step' if kind == 'train' else 'batch'}"
                     for launches in g[kind]:
                         _assert_launches(records, launches, want, f"{label} (rank {rank})")
@@ -3355,8 +3370,125 @@ def scatter_bwd_times(dev, tree):
           + "; ".join(lines))
 
 
+def _update_inputs(dev, tree, copies: int):
+    """``copies`` dual optimizers over models of the benchmark's
+    ``roberta-base-r18d-full`` (bf16 state), each parameter's ``.grad`` one
+    shared gradient; the gradients, a clip factor and a loss above the clip's
+    threshold."""
+    import types
+
+    from vibertgrid_tpu_torch.train.driver import build_all
+    from vibertgrid_tpu_torch.train.optim import make_optimizer
+
+    with open(os.path.join(tree, "benchmark", "configs", "roberta-base-r18d-full.json")) as f:
+        hyp = json.load(f)["hyp"]
+    ids = types.SimpleNamespace(cls_token_id=0, sep_token_id=2)
+    opts = []
+    for _ in range(copies):
+        model = build_all(hyp, "sroie", ids, device=dev, seed=0)[2]
+        opts.append(make_optimizer(hyp, hyp["end_epoch"], 39, model.named_parameters()))
+    params = [[p for group in o.param_groups for p in group["params"]] for o in opts]
+    g = torch.Generator(device=dev).manual_seed(3)
+    grads = [torch.randn(p.shape, generator=g, device=dev) * 1e-3 for p in params[0]]
+    for ps in params:
+        for p, grad in zip(ps, grads):
+            p.grad = grad
+    return opts, grads, torch.tensor(0.5, device=dev), torch.tensor(20.0, device=dev)
+
+
+def check_update(dev):
+    """The train step's clip norm and dual update (``csrc/fused_update.cu``,
+    no TPU counterpart) at the parameter set of the benchmark's
+    ``roberta-base-r18d-full`` (bf16 state): two updates bit-equal to the
+    library passes they replace (``DualOptimizer._passes``, the CPU's
+    update), the norm within 1e-12 of the library's fp64 norms; the device
+    time of each launch, the passes' and the byte bound. Returns the two
+    kernels' records."""
+    from vibertgrid_tpu_torch.train import state as state_module
+
+    opts, grads, scale, _ = _update_inputs(dev, HERE, 2)
+    kernel, passes = opts
+
+    def plain_update():
+        passes._passes(passes._items(), scale)
+        passes.count += 1
+
+    def plain_norm():
+        return torch.stack(torch._foreach_norm(grads, dtype=torch.float64)).square().sum()
+
+    for _ in range(2):
+        kernel.step(grad_scale=scale)
+        plain_update()
+    torch.cuda.synchronize()
+    for p, q in zip(*([p for group in o.param_groups for p in group["params"]] for o in opts)):
+        if not torch.equal(p, q) or any(not torch.equal(v, passes.state[q][k])
+                                        for k, v in kernel.state[p].items()):
+            raise AssertionError("the update kernel differs from the library passes")
+    if kernel.fused_share != 100.0:
+        raise AssertionError(f"the kernel took {kernel.fused_share}% of the update")
+    norm, plain = state_module._squares(grads).item(), plain_norm().item()
+    if abs(norm - plain) > 1e-12 * plain:
+        raise AssertionError(f"the norm kernel's {norm!r} differs from the library's {plain!r}")
+
+    adam = sum(p.numel() for p in kernel.param_groups[1]["params"])
+    sgd = sum(p.numel() for p in kernel.param_groups[0]["params"])
+    update = lambda: kernel.step(grad_scale=scale)
+    norm_run = lambda: state_module._squares(grads)
+    by_name = [f"{k} {ms:.4f} x{count:g}" for fn in (update, norm_run) for k, ms, count in
+               _kernel_ms_by_name(fn, r"(dual_update|grad_sq_norm|sum_partials)_kernel")]
+    records = []
+    for name, fn, plain_fn, nbytes, err in (
+            ("dual_update", update, plain_update, 20 * adam + 16 * sgd, 0.0),
+            ("grad_sq_norm", norm_run, plain_norm, 4 * (adam + sgd), abs(norm - plain))):
+        ms, plain_ms = _time_ms(fn), _time_ms(plain_fn)
+        records.append(dict(
+            name=name, route="cuda", source="vibertgrid_tpu_torch/csrc/fused_update.cu",
+            replaces=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", library_ms=None))
+    print(f"optimizer kernels at roberta-base-r18d-full's parameters (AdamW {adam}, SGD {sgd}, "
+          f"bf16 state), device ms: "
+          + "; ".join(f"{r['name']} {r['ms']:.4f} (the passes' {r['plain_ms']:.4f}, bound "
+                      f"{r['bound_ms']:.4f})" for r in records)
+          + f"; by launch: {', '.join(by_name)}; two updates bit-equal to the passes', the norm "
+          "within 1e-12")
+    return records
+
+
+def update_times(dev, tree):
+    """The eager clip and update of a train step (``train/state.py::
+    apply_gradients``) at the parameter set of the benchmark's
+    ``roberta-base-r18d-full``, in ``tree``'s package (any tree: for
+    comparing trees): the host's milliseconds until a call returns, the
+    milliseconds of a call and its sync, and the card's; then, where the
+    tree has the optimizer's kernels, :func:`check_update`."""
+    import importlib.util
+
+    from vibertgrid_tpu_torch.train import state as state_module
+
+    (opt,), _, _, loss = _update_inputs(dev, tree, 1)
+    run = lambda: state_module.apply_gradients(opt, loss, False, 10.0, 2.0)
+    device_ms = _time_ms(run)
+    host, whole = [], []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)  # the card busy: the call's host time alone
+        t0 = time.perf_counter()
+        run()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        whole.append(time.perf_counter() - t0)
+    print(f"eager clip and update at roberta-base-r18d-full's parameters ({tree}): host "
+          f"{statistics.median(host) * 1e3:.4f} ms a call, with its sync "
+          f"{statistics.median(whole) * 1e3:.4f} ms, device {device_ms:.4f} ms (medians of 20)")
+    if importlib.util.find_spec("vibertgrid_tpu_torch.ops.fused_update") is not None:
+        check_update(dev)
+
+
 KERNEL_MODES = {"attention": attention_times, "ffn": ffn_times, "proj_ln": proj_ln_times,
-                "scatter_bwd": scatter_bwd_times}
+                "scatter_bwd": scatter_bwd_times, "update": update_times}
 
 
 def main(argv) -> int:
@@ -3440,7 +3572,7 @@ def main(argv) -> int:
 
     records = [check(dev) for check in (
         check_attention, check_attention_bwd, check_ffn, check_ffn_saved, check_proj_ln,
-        check_scatter, check_scatter_bwd)]
+        check_scatter, check_scatter_bwd)] + check_update(dev)
     flagship_forward(dev, records)
     flagship_train(dev, records)
     determinism(dev)

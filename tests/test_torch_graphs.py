@@ -8,14 +8,27 @@ On the CPU, each held to the values the step took before they moved there:
 - the twins' dropouts and the sampled losses' keys with slot seeds;
 - ``_weighted_threshold``'s gather against indexing by the 0-d position,
   on ties and on a count that is not reached;
-- the optimizer's update as a CUDA graph captures it (the device table at
-  the device counter) against the host-float update, bit for bit, past the
-  schedules' end, and the eager update (host floats from the table) too;
+- the optimizer's update (host floats from its table) against the
+  host-float update from the schedules, bit for bit, past the schedules' end;
 - the step's seed tensor: slot *i* is the stream's *i*-th draw;
 - CPU steps stay eager, and their second step (seeds on the device) takes
-  the first step's path's values.
+  the first step's path's values;
+- what the update kernel takes (fp32 parameters and gradients, bf16 or
+  fp32 state, any strides; anything else raises; CPU updates take the
+  library's passes and read a ``fused_share`` of 0, which marks the
+  ``optimizer`` range), its descriptor lists' layout (one row a contiguous
+  run: a slice along a later axis, a strided view, a contiguous state beside
+  a sliced parameter) and their cache (the same pointers reuse a list, a new
+  ``.grad`` builds one, a capture that finds none raises; the CPU builds
+  none), and the clip's sum of squares against the library's fp64 norms.
 
-On the card (``cuda``): the kernels' dropout read through a seed pointer
+On the card (``cuda``): the update kernel and the norm kernel in the
+host-float update's test above (one launch each); 400 tensors of odd sizes,
+half of them misaligned, over both state dtypes, eager and replayed from a
+CUDA graph, bit-equal to the host-float passes, also with a strided
+gradient and a parameter sliced along its second axis, which the kernel
+takes by runs (the share 100); a capture whose list was not built raises;
+the kernels' dropout read through a seed pointer
 against ``hash_dropout``'s masks; 8 steps over two batch shapes, eager and
 graph-replayed, bit-equal; the ``train_step`` ranges marked 2 captured, then
 6 replayed, whose inner ranges carry device intervals and no host interval;
@@ -37,7 +50,7 @@ import pytest
 import torch
 
 from vibertgrid_tpu_torch.entry import FLAGSHIP_TRAIN, make_batch, train_entry
-from vibertgrid_tpu_torch.ops import kernels, losses
+from vibertgrid_tpu_torch.ops import fused_update, kernels, losses
 from vibertgrid_tpu_torch.ops.dropout import hash_dropout, keep_mask
 from vibertgrid_tpu_torch.ops.flash_attention import attention_dropout_mask
 from vibertgrid_tpu_torch.ops.fused_ffn import ffn_down_ln_reference
@@ -55,7 +68,6 @@ from vibertgrid_tpu_torch.train.seeds import (
     step_seeds,
     upload,
 )
-from vibertgrid_tpu_torch.train import optim
 from vibertgrid_tpu_torch.train import state as train_state
 from vibertgrid_tpu_torch.train.state import make_train_step
 from vibertgrid_tpu_torch.utils import profiling
@@ -244,19 +256,9 @@ def _named(seed):
             + [(f"bert_model.w{i}", torch.randn(s, generator=g)) for i, s in enumerate(shapes)])
 
 
-@pytest.fixture(params=["eager", "captured"])
-def update_path(request, monkeypatch):
-    """The optimizer's two forms: host floats (an eager update), and the
-    device table at the device counter (an update under CUDA graph capture,
-    which this makes the optimizer take outside one)."""
-    if request.param == "captured":
-        monkeypatch.setattr(optim, "_capturing", lambda: True)
-    return request.param
-
-
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 @pytest.mark.parametrize("state_dtype", [torch.bfloat16, None])
-def test_optimizer_device_table_update_matches_host_floats(state_dtype, device, update_path):
+def test_optimizer_device_table_update_matches_host_floats(state_dtype, device):
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (on the GPU: python -m pytest --noconftest -m cuda)")
     named = [(n, p.to(device).requires_grad_(True)) for n, p in _named(0)]
@@ -271,7 +273,12 @@ def test_optimizer_device_table_update_matches_host_floats(state_dtype, device, 
         grads = [(torch.randn(p.shape, generator=g) * 3).to(device) for _, p in named]
         for (_, p), gr in zip(named, grads):
             p.grad = gr.clone()
+        launched = dict(kernels.LAUNCHES)
         opt.step(grad_scale=scale)
+        if device == "cuda":  # the hand kernel updated every tensor, in one launch
+            assert kernels.LAUNCHES["dual_update"] == launched["dual_update"] + 1
+            assert opt.fused_share == 100.0
+            _assert_norm_matches_the_library(grads)
         with torch.no_grad():
             _host_float_update(host, count, {q: gr * scale for q, gr in zip(host_params, grads)})
         for (name, p), q in zip(named, host_params):
@@ -281,14 +288,190 @@ def test_optimizer_device_table_update_matches_host_floats(state_dtype, device, 
     assert opt.count == 12 and int(opt._count_t) == 12
 
 
-def test_optimizer_table_rows_and_counter(update_path):
+def _assert_norm_matches_the_library(grads):
+    """The clip's sum of squares, one launch on the card, against the
+    library's fp64 norms squared and summed, within 1e-12 of it."""
+    launched = kernels.LAUNCHES["grad_sq_norm"]
+    got = train_state._squares(grads)
+    if grads[0].is_cuda:
+        assert kernels.LAUNCHES["grad_sq_norm"] == launched + 1
+    want = torch.stack(torch._foreach_norm(grads, dtype=torch.float64)).square().sum()
+    assert got.dtype == torch.float64 and got.dim() == 0
+    assert abs(got.item() - want.item()) <= 1e-12 * want.item(), (got.item(), want.item())
+
+
+# ---- what the update kernel takes, and its descriptor lists (ops/fused_update.py) ----
+
+
+def test_update_routing_takes_contiguous_fp32_tensors_with_bf16_or_fp32_state():
+    """The kernel's entries: fp32 parameter and gradient with bf16 or fp32
+    state, contiguous or not; anything else raises rather than run apart."""
+    p, g = torch.randn(6, 4), torch.randn(6, 4)
+    bf16, fp32 = torch.zeros(6, 4, dtype=torch.bfloat16), torch.zeros(6, 4)
+    one = fused_update.update_entry(p, g, [bf16], False)
+    assert one[:2] == (fused_update.STATE_BF16, (6, 4))
+    assert one[2:] == ((p.data_ptr(), (4, 1)), (g.data_ptr(), (4, 1)), (bf16.data_ptr(), (4, 1)))
+    assert fused_update.update_entry(p, g, [fp32, fp32], True)[0] == fused_update.ADAMW
+    # slices that are not contiguous (ZeRO-1's narrow along a later axis)
+    cut = fused_update.update_entry(p[:, 1:3], g[:, 1:3], [bf16[:, 1:3]], False)
+    assert cut[1] == (6, 2) and cut[2] == (p.data_ptr() + 4, (4, 1))
+    fused_update.update_entry(p, g.t().contiguous().t(), [bf16], False)
+    # an fp16 state, a mixed state, an fp16 parameter or gradient, another shape
+    for args in ((p, g, [bf16.half()]), (p, g, [bf16, fp32]), (p.half(), g, [bf16]),
+                 (p, g.half(), [bf16])):
+        with pytest.raises(TypeError):
+            fused_update.update_entry(*args, True)
+    with pytest.raises(ValueError):
+        fused_update.update_entry(p, g[:5], [bf16], False)
+    with pytest.raises(TypeError):
+        fused_update.norm_entry(g.double())
+
+
+def test_cpu_updates_take_the_passes_and_read_a_fused_share_of_0():
+    named = [(n, p.requires_grad_(True)) for n, p in _named(3)]
+    opt = DualOptimizer(named, _schedules())
+    assert opt.fused_share is None
+    for _, p in named:
+        p.grad = torch.ones_like(p)
+    launched = dict(kernels.LAUNCHES)
+    opt.step(grad_scale=torch.tensor(0.5))
+    assert opt.fused_share == 0.0 and kernels.LAUNCHES == launched
+    assert opt.prepare() is None  # nothing on the card
+    _assert_norm_matches_the_library([p.grad for _, p in named])
+
+
+def test_cpu_train_steps_mark_their_optimizer_range_with_the_fused_share():
+    state, step, batch = train_entry("cpu", config=TINY, shape=TINY_SHAPE)
+    _, recorded = _traced(lambda: step(state, batch, step_seeds(7, 0)))
+    assert [s.fused_share for s in recorded if s.name == "optimizer"] == [0.0]
+
+
+def _entries(named, grads, states):
+    return tuple(fused_update.update_entry(p, g, st, name.startswith("bert_model."))
+                 for (name, p), g, st in zip(named, grads, states))
+
+
+def _norm_entries(*grads):
+    return [fused_update.norm_entry(g) for g in grads]
+
+
+def test_descriptor_list_layout(monkeypatch):
+    monkeypatch.setattr(fused_update, "CHUNK", 8)
+    flat = torch.zeros(64)
+    p, q = flat[0:20], flat[21:24]  # 3 chunks, aligned; 1 chunk, misaligned
+    bf16, s0, s1 = torch.zeros(20, dtype=torch.bfloat16), torch.zeros(3), torch.zeros(3)
+    entries = (fused_update.update_entry(p, p.clone(), [bf16], False),
+               fused_update.update_entry(q, q.clone(), [s0, s1], True))
+    got = fused_update.build(entries, "cpu")
+    assert (got.n_rows, got.n_chunks) == (2, 4)
+    table = got.table.tolist()
+    assert table[0] == p.data_ptr() and table[2:4] == [bf16.data_ptr(), 0]
+    assert table[4:8] == [20, fused_update.STATE_BF16 | fused_update.ALIGNED, 0, 0]  # chunk 0
+    assert table[8] == q.data_ptr() and table[10:12] == [s0.data_ptr(), s1.data_ptr()]
+    assert table[12:16] == [3, fused_update.ADAMW, 3, 0]  # misaligned, first chunk 3
+    assert table[16:] == [0, 0, 0, 1]
+    norm = fused_update.rows_of(_norm_entries(q))
+    assert norm.tolist() == [[0, q.data_ptr(), 0, 0, 3, 0]]
+
+
+def test_descriptor_rows_are_the_contiguous_runs_of_strided_operands():
+    """A slice along a later axis is one row a run of its leading axes; a
+    contiguous state beside it takes the same runs; a view with a stride
+    in its last axis one row an element; a contiguous tensor one row."""
+    base, grads = torch.zeros(5, 8), torch.zeros(5, 8)
+    p, g = base.narrow(1, 4, 4), grads.narrow(1, 4, 4)
+    state = torch.zeros(5, 4, dtype=torch.bfloat16)
+    rows = fused_update.rows_of([fused_update.update_entry(p, g, [state], False)])
+    assert rows[:, 0].tolist() == [base.data_ptr() + 4 * (8 * r + 4) for r in range(5)]
+    assert rows[:, 1].tolist() == [grads.data_ptr() + 4 * (8 * r + 4) for r in range(5)]
+    assert rows[:, 2].tolist() == [state.data_ptr() + 2 * 4 * r for r in range(5)]
+    assert rows[:, 4].tolist() == [4] * 5
+    assert (rows[:, 5] & fused_update.ALIGNED).all()
+    # three axes, sliced along the second: runs of the last two axes' slice
+    cube = torch.zeros(3, 4, 6)
+    cut = cube.narrow(1, 2, 2)
+    rows = fused_update.rows_of(_norm_entries(cut))
+    assert rows[:, 1].tolist() == [cube.data_ptr() + 4 * (24 * r + 12) for r in range(3)]
+    assert rows[:, 4].tolist() == [12] * 3
+    # every other element: runs of one, each flagged by its own address
+    flat = torch.zeros(14)
+    rows = fused_update.rows_of(_norm_entries(flat[::2]))
+    assert rows[:, 1].tolist() == [flat.data_ptr() + 8 * k for k in range(7)]
+    assert rows[:, 4].tolist() == [1] * 7
+    assert rows[:, 5].tolist() == [fused_update.ALIGNED * (a % 16 == 0) for a in rows[:, 1]]
+    # contiguous, with axes of size one, and empty
+    one = torch.zeros(1, 5, 1, 3)
+    assert fused_update.rows_of(_norm_entries(one))[:, 4].tolist() == [15]
+    assert fused_update.rows_of(_norm_entries(torch.zeros(0, 3))).shape == (0, 6)
+
+
+def test_descriptor_rows_put_each_contiguous_tensor_first_then_the_runs():
+    """A list's rows: one for each contiguous tensor, in order, then the
+    runs of the others; each flagged by the alignment of all its addresses
+    (a state of bf16 needs 8 bytes, of fp32 16)."""
+    base = torch.zeros(4, 8)
+    p, g = torch.zeros(12), torch.zeros(12)
+    bf16, fp32 = torch.zeros(16, dtype=torch.bfloat16), torch.zeros(16)
+    entries = [fused_update.update_entry(base[:, :4], base[:, 4:], [fp32[:16].view(4, 4)], False),
+               fused_update.update_entry(p, g, [bf16[2:14]], False),
+               fused_update.update_entry(p, g, [fp32[2:14]], True)]
+    rows = fused_update.rows_of(entries)
+    assert rows[:, 4].tolist() == [12, 12, 4, 4, 4, 4]
+    assert rows[:2, 2].tolist() == [bf16.data_ptr() + 4, fp32.data_ptr() + 8]
+    assert all(t.data_ptr() % 16 == 0 for t in (base, p, g, bf16, fp32))  # the allocator's
+    aligned = (rows[:, 5] & fused_update.ALIGNED) > 0
+    assert aligned.tolist() == [False, False, True, True, True, True]  # states 4 and 8 bytes in
+    assert rows[2:, 0].tolist() == [base.data_ptr() + 32 * r for r in range(4)]
+    assert rows[2:, 2].tolist() == [fp32.data_ptr() + 16 * r for r in range(4)]
+
+
+def test_run_offsets_are_kept_by_layout():
+    """A strided layout's run offsets are computed once and shared, read-only."""
+    first = fused_update._offsets((6, 10), (20, 1), 10)
+    assert first.tolist() == [20 * r for r in range(6)] and not first.flags.writeable
+    assert fused_update._offsets((6, 10), (20, 1), 10) is first
+
+
+def test_prepare_update_builds_no_list_on_the_cpu():
+    state, _, _ = train_entry("cpu", config=TINY, shape=TINY_SHAPE)
+    for p in state.model.parameters():
+        p.grad = torch.zeros_like(p)
+    assert train_state.prepare_update(state.optimizer) == [None]
+
+
+def test_descriptor_lists_are_cached_by_their_rows(monkeypatch):
+    monkeypatch.setattr(fused_update, "_lists", type(fused_update._lists)())
+    named = _named(4)
+    grads = [torch.randn(p.shape) for _, p in named]
+    states = [[torch.zeros_like(p, dtype=torch.bfloat16)
+               for _ in range(2 if n.startswith("bert_model.") else 1)] for n, p in named]
+    entries = _entries(named, grads, states)
+    first = fused_update.descriptors(entries, "cpu")
+    assert fused_update.descriptors(_entries(named, grads, states), "cpu") is first  # same storage
+    grads[3] = grads[3].clone()  # a new .grad: a new list
+    other = fused_update.descriptors(_entries(named, grads, states), "cpu")
+    assert other is not first and other.table[3 * fused_update.ROW + 1] == grads[3].data_ptr()
+    for k in range(fused_update._KEEP):  # the least recently used go
+        fused_update.descriptors([fused_update.norm_entry(torch.zeros(k + 1))], "cpu")
+    assert entries not in fused_update._lists
+    # under capture a list is only taken from the cache: a list not built raises
+    kept = [fused_update.norm_entry(torch.zeros(1))]
+    built = fused_update.descriptors(kept, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="no descriptor list"):
+        fused_update.descriptors(entries, "cpu")
+    assert fused_update.descriptors(kept, "cpu") is built
+
+
+def test_optimizer_table_rows_and_counter():
     opt = DualOptimizer(_named(2), _schedules())
     sch = _schedules()
     for n in (0, 4, 8, 9, 30, 17320, 10**6):
         opt.count = n
-        row = opt._row(torch.device("cpu"))
-        assert all(isinstance(v, float) == (update_path == "eager") for v in row)
-        row = [float(v) for v in row]
+        row = opt._row()
+        assert all(isinstance(v, float) for v in row)
+        assert row == opt.table[min(n, len(opt.table) - 1)].tolist()
         c = np.float32(n + 1)
         assert row[:4] == [-schedule_value(sch["lr_cnn"], n), schedule_value(sch["wd_cnn"], n),
                            -schedule_value(sch["lr_bert"], n), schedule_value(sch["wd_bert"], n)]
@@ -400,6 +583,141 @@ def test_attention_backward_reads_the_seed_pointer(cuda_device, dtype):
 
     for a, b_ in zip(grads(_slot(4242, cuda_device)), grads(4242)):
         assert torch.equal(_bits(a), _bits(b_))
+
+
+def _many_tensors(dev, seed: int, count: int = 400):
+    """``count`` parameters of odd sizes, from 1 element to several of the
+    kernel's chunks, every other one at an odd offset in a shared buffer
+    (so that the kernel takes it element by element), half of each group;
+    and a gradient for each at the same offsets in a buffer of their own."""
+    g = torch.Generator().manual_seed(seed)
+    sizes = torch.randint(1, 3000, (count,), generator=g).tolist()
+    sizes[5], sizes[206] = 2 * fused_update.CHUNK + 3, fused_update.CHUNK + 1
+    offsets, at = [], 0
+    for k, n in enumerate(sizes):
+        at += 1 if k % 2 else (-at) % 4
+        offsets.append(at)
+        at += n
+    flat = torch.randn(at, generator=g).to(dev)
+    named = [(f"{'bert_model' if k % 4 < 2 else 'backbone'}.w{k}",
+              torch.nn.Parameter(flat[o:o + n])) for k, (o, n) in enumerate(zip(offsets, sizes))]
+
+    def grads(step_seed):
+        buf = (torch.randn(at, generator=torch.Generator().manual_seed(step_seed)) * 3).to(dev)
+        return [buf[o:o + n] for o, n in zip(offsets, sizes)]
+
+    return named, grads
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view that is not contiguous (every other element
+    of a buffer twice its size)."""
+    out = t.new_zeros(2 * t.numel())[::2]
+    out.copy_(t)
+    return out
+
+
+def _captured_update(opt, named, static):
+    """``update(grads, scale)``: ``opt``'s step captured in a CUDA graph on
+    the gradient buffers ``static`` and replayed."""
+    for (_, p), gr in zip(named, static):
+        p.grad = gr
+    scale = torch.ones((), device=static[0].device)
+    kernels.library()
+    kept = opt.prepare()  # the graph reads it at every replay
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.step(grad_scale=scale)
+    opt.advance_host_count(-1)  # the capture ran no update
+
+    def update(grads, value):
+        assert kept is not None
+        torch._foreach_copy_(static, grads)
+        scale.fill_(value)
+        graph.replay()
+        opt.advance_host_count(1)
+
+    return update
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["eager", "captured"])
+@pytest.mark.parametrize("state_dtype", [torch.bfloat16, None])
+@pytest.mark.parametrize("strided", [False, True])
+def test_update_kernel_over_many_odd_tensors_is_the_passes_bit_for_bit(cuda_device, path,
+                                                                       state_dtype, strided):
+    """400 tensors of odd sizes, half of them misaligned (several chunks, the
+    element-by-element tails), updated by the kernel, eager and in a
+    replayed CUDA graph, against the library's host-float passes; with
+    ``strided`` one gradient is every other element of a buffer, and one
+    parameter and its gradient are slices along the second axis (as ZeRO-1
+    cuts a parameter whose first axis does not split), which the kernel
+    takes by runs, beside a contiguous state."""
+    named, make_grads = _many_tensors(cuda_device, 5)
+    odd, cut = 1, 2  # misaligned in the encoder's group; in the CNN's group
+    wide = (37, 24)
+    if strided:
+        base = torch.randn(wide, generator=torch.Generator().manual_seed(9)).to(cuda_device)
+        named[cut] = (named[cut][0], torch.nn.Parameter(base.narrow(1, 8, 12)))
+    host = DualOptimizer([(n, p.detach().clone().requires_grad_(True)) for n, p in named],
+                         _schedules(), state_dtype=state_dtype)
+    opt = DualOptimizer(named, _schedules(), state_dtype=state_dtype)
+    host_params = [p for g in host.param_groups for p in g["params"]]
+    params = [p for g in opt.param_groups for p in g["params"]]
+    order = {id(p): k for k, (_, p) in enumerate(named)}
+
+    def laid_out(seed):
+        grads = make_grads(seed)
+        if strided:
+            grads[odd] = _strided(grads[odd])
+            buf = torch.randn(wide, generator=torch.Generator().manual_seed(seed + 1)) * 3
+            grads[cut] = buf.to(cuda_device).narrow(1, 8, 12)
+        return grads
+
+    update = None
+    if path == "captured":
+        update = _captured_update(opt, named, laid_out(0))
+    for count in range(4):
+        grads = laid_out(100 + count)
+        scale = torch.tensor(0.7 if count % 2 else 1.0, device=cuda_device)
+        launched = dict(kernels.LAUNCHES)
+        if update is None:
+            for (_, p), gr in zip(named, grads):
+                p.grad = gr
+            opt.step(grad_scale=scale)
+            assert kernels.LAUNCHES["dual_update"] == launched["dual_update"] + 1
+        else:
+            update(grads, scale.item())
+        with torch.no_grad():
+            _host_float_update(host, count, {q: grads[order[id(p)]].contiguous() * scale
+                                             for p, q in zip(params, host_params)})
+        for p, q in zip(params, host_params):
+            assert torch.equal(_bits(p), _bits(q)), (count, order[id(p)])
+            for slot, v in opt.state[p].items():
+                assert torch.equal(_bits(v), _bits(host.state[q][slot])), (count, slot)
+    assert opt.fused_share == 100.0
+    _assert_norm_matches_the_library(laid_out(7))
+
+
+@pytest.mark.cuda
+def test_a_capture_whose_list_was_not_built_raises(cuda_device):
+    """A capture copies nothing from the host, so the update and the norm
+    raise where their descriptor list was not built before it, rather than
+    run apart from the kernels."""
+    named = [(n, torch.nn.Parameter(p.to(cuda_device))) for n, p in _named(6)]
+    opt = DualOptimizer(named, _schedules())
+    for _, p in named:
+        p.grad = torch.randn_like(p)
+    kernels.library()
+    opt.step()  # eager: the table on the card, the list of these gradients built
+    for _, p in named:
+        p.grad = torch.randn_like(p)  # new storage
+    launched = dict(kernels.LAUNCHES)
+    for run in (opt.step, lambda: train_state._squares([p.grad for _, p in named])):
+        with pytest.raises(RuntimeError, match="no descriptor list"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                run()
+    assert kernels.LAUNCHES == launched and opt.count == 1
 
 
 GRAPH_SHAPES = (dict(b=2, h=256, w=256, t=510, s=32, vocab=30522),

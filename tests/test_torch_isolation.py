@@ -222,9 +222,15 @@ def test_wrappers_use_twins_on_cpu_and_count_no_launch():
     proj = (x, torch.randn(10, 64, generator=g), torch.randn(64, 64, generator=g),
             torch.zeros(64), torch.ones(64), torch.zeros(64), 1e-12)
     torch.testing.assert_close(fused_proj_ln(*proj), proj_ln_reference(*proj), rtol=0, atol=0)
+    from vibertgrid_tpu_torch.train.state import _squares
+
+    # the clip's sum of squares on CPU gradients: the library's fp64 norms
+    want = torch.stack(torch._foreach_norm([x, emb.grad], dtype=torch.float64)).square().sum()
+    assert torch.equal(_squares([x, emb.grad]), want)
     assert set(kernels.LAUNCHES) == {
         "flash_attention", "flash_attention_bwd", "fused_ffn", "fused_ffn_saved",
-        "fused_proj_ln", "bertgrid_scatter", "bertgrid_scatter_bwd"}
+        "fused_proj_ln", "bertgrid_scatter", "bertgrid_scatter_bwd", "grad_sq_norm",
+        "dual_update"}
     assert not any(kernels.LAUNCHES.values())
 
 

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vibertgrid_tpu_torch"
 SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "fused_ffn.cu", "fused_proj_ln.cu",
-    "bertgrid_scatter.cu", "bertgrid_scatter_bwd.cu", "errors.cu",
+    "bertgrid_scatter.cu", "bertgrid_scatter_bwd.cu", "fused_update.cu", "errors.cu",
 )
 HEADERS = ("common.cuh", "ffn_down_ln.cuh", "wgmma.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -40,7 +40,8 @@ LIB_NAME = "libvibertgrid_kernels.so"
 # Launches per kernel since the last reset_launch_counts().
 LAUNCHES = {
     "flash_attention": 0, "flash_attention_bwd": 0, "fused_ffn": 0, "fused_ffn_saved": 0,
-    "fused_proj_ln": 0, "bertgrid_scatter": 0, "bertgrid_scatter_bwd": 0,
+    "fused_proj_ln": 0, "bertgrid_scatter": 0, "bertgrid_scatter_bwd": 0, "grad_sq_norm": 0,
+    "dual_update": 0,
 }
 
 _P = ctypes.c_void_p
@@ -64,6 +65,11 @@ _SIGNATURES = {
     # d_out, boxes, mask, d_emb, cells, offsets, partials, counters, B, S, D, height, width,
     # stride, piece, dtype, stream
     "vg_bertgrid_scatter_bwd": [_P] * 8 + [_I] * 8 + [_P],
+    # desc, n_rows, n_chunks, partials, out, stream
+    "vg_grad_sq_norm": [_P, _I, _I, _P, _P, _P],
+    # desc, n_rows, n_chunks, table, count, last, scale, momentum, beta1, 1 - beta1, beta2,
+    # 1 - beta2, eps, stream
+    "vg_dual_update": [_P, _I, _I, _P, _P, _I, _P] + [_F] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

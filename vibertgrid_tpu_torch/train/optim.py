@@ -10,19 +10,23 @@ weight decays follow per-iteration schedule arrays (StepLR every 15 epochs
 The update's per-step scalars are rows of one fp32 table, computed once on
 the host as the fp32 values the update has always used: the learning rates
 (negated), the weight decays and Adam's two bias corrections, with their
-reciprocals. An update run eagerly takes its row as host floats, the
-``alpha=`` and scalar forms of the ``_foreach_*`` passes. An update captured
-into a CUDA graph reads the row on the device, at a step counter there that
-every update advances, so each replay of the train step reads its own row:
-``addcmul`` by the 0-d scalar rounds once, as ``alpha=`` does, and a
-division takes the library's arithmetic for a scalar, so both forms give
-the same bits. ``count`` is the host's copy of the counter (checkpoints
-save it; setting it sets both).
+reciprocals.
 
 The momentum buffer and the Adam moments are *stored* in
 ``optimizer_state_dtype`` (bf16 by default); the arithmetic is fp32 and the
-state is cast once on write. The updates run as ``torch._foreach_*`` passes
-over each group's tensor lists.
+state is cast once on write. On the card, one hand-written launch updates
+every tensor of both groups
+(:func:`vibertgrid_tpu_torch.ops.fused_update.dual_update`: fp32 parameters
+and gradients, bf16 or fp32 state, any strides; anything else raises),
+reading this update's row of the table on the device, at a step counter
+there that every update advances, so each replay of a captured train step
+reads its own row. On the CPU the update runs as ``torch._foreach_*``
+passes over each group's lists, with the row at ``count`` as host floats
+(their ``alpha=`` and scalar forms); the launch computes each element with
+those passes' operations and roundings, bit for bit. ``count`` is the
+host's copy of the counter (checkpoints save it; setting it sets both).
+``fused_share`` is the percentage of the last update's elements that the
+launch took.
 
 Under ZeRO-1 (:func:`vibertgrid_tpu_torch.parallel.sharding.shard_optimizer_state`)
 each rank keeps the state of its slices of the large parameters only,
@@ -39,6 +43,7 @@ import functools
 import numpy as np
 import torch
 
+from vibertgrid_tpu_torch.ops import fused_update
 from vibertgrid_tpu_torch.parallel.sharding import all_gather_slices
 from vibertgrid_tpu_torch.train.schedules import cosine_scheduler, step_scheduler
 
@@ -56,37 +61,10 @@ def _store(states, values):
     torch._foreach_copy_(states, values)  # casts to the state dtype on write
 
 
-def _capturing() -> bool:
-    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
-
-
-def _axpy(ys, a, xs, out: bool = False):
-    """``y + a·x`` for each pair. ``a`` a host float: one ``_foreach_add``
-    with ``alpha``; a 0-d device tensor: an ``addcmul`` a pair, which rounds
-    once, as ``alpha`` does. In place unless ``out``."""
-    if isinstance(a, float):
-        return (torch._foreach_add if out else torch._foreach_add_)(ys, xs, alpha=a)
-    if out:
-        return [torch.addcmul(y, x, a) for y, x in zip(ys, xs)]
-    for y, x in zip(ys, xs):
-        y.addcmul_(x, a)
-    return ys
-
-
-def _divide(xs, d, inv_d):
-    """``x / d`` for each x. ``d`` a host float: ``_foreach_div``; a 0-d
-    device tensor: that division's arithmetic, on CUDA a product with the
-    fp32 reciprocal ``inv_d``, on the CPU a division."""
-    if isinstance(d, float):
-        return torch._foreach_div(xs, d)
-    if xs and xs[0].is_cuda:
-        return torch._foreach_mul(xs, inv_d)
-    return torch._foreach_div(xs, d)
-
-
 # columns of DualOptimizer's table
 _NEG_LR_CNN, _WD_CNN, _NEG_LR_BERT, _WD_BERT, _BC1, _BC2, _INV_BC1, _INV_BC2 = range(8)
 _MAX_ROWS = 1 << 20
+_SLOTS = {"cnn": ("momentum",), "bert": ("mu", "nu")}  # each group's state, in the kernel's order
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,7 +88,8 @@ class DualOptimizer(torch.optim.Optimizer):
     rate and weight decay.
 
     ``step(grad_scale)`` applies one update from the parameters' ``.grad``;
-    ``grad_scale`` (a 0-d tensor or None) multiplies every gradient first,
+    ``grad_scale`` (a 0-d tensor or None; on the card fp32, on the
+    parameters' device) multiplies every gradient first,
     which is how the train step applies its conditional clip without
     reading anything back from the device.
     """
@@ -135,6 +114,7 @@ class DualOptimizer(torch.optim.Optimizer):
         self.schedules = schedules  # builds the table
         self.shards: dict = {}  # ZeRO-1: {param: (axis, start, length)} this rank owns
         self.group = None  # ZeRO-1: the data group the slices are exchanged over
+        self.fused_share: float | None = None  # % of the last update's elements the launch took
         for group in self.param_groups:
             for p in group["params"]:
                 zeros = lambda: torch.zeros_like(p, dtype=state_dtype or p.dtype)
@@ -189,28 +169,24 @@ class DualOptimizer(torch.optim.Optimizer):
         self._host_table = table
         self._table = torch.from_numpy(table).to(self._count_t.device)
 
-    def _row(self, device) -> list:
-        """This update's scalars: under CUDA graph capture, 0-d views of the
-        table's row at the device counter (a gather: indexing by a 0-d
-        tensor would read it back), else the row at ``count`` as host
-        floats. The table and the counter follow the parameters to their
-        device (an eager update moves them, before any capture)."""
+    def _place(self, device) -> None:
         if self._count_t.device != device:
             self._count_t, self._table = self._count_t.to(device), self._table.to(device)
+
+    def _row(self) -> list:
+        """The passes' scalars: the table's row at ``count``, as host floats."""
         last = self._host_table.shape[0] - 1
-        if not _capturing():
-            return [float(v) for v in self._host_table[min(self._count, last)]]
-        return list(self._table.index_select(0, self._count_t.clamp(max=last).reshape(1))[0])
+        return [float(v) for v in self._host_table[min(self._count, last)]]
 
     def _sgd(self, owners, params, grads, neg_lr, wd):
         bufs = [self.state[p]["momentum"] for p in owners]
-        g = _axpy(grads, wd, params, out=True)              # grad + wd·p
+        g = torch._foreach_add(grads, params, alpha=wd)     # grad + wd·p
         buf = torch._foreach_mul(_f32(bufs), self.momentum)  # momentum·b + g
         torch._foreach_add_(buf, g)
-        _axpy(params, neg_lr, buf)
+        torch._foreach_add_(params, buf, alpha=neg_lr)
         _store(bufs, buf)
 
-    def _adamw(self, owners, params, grads, neg_lr, wd, bc1, bc2, inv_bc1, inv_bc2):
+    def _adamw(self, owners, params, grads, neg_lr, wd, bc1, bc2):
         b1, b2 = self.beta1, self.beta2
         mus = [self.state[p]["mu"] for p in owners]
         nus = [self.state[p]["nu"] for p in owners]
@@ -219,13 +195,13 @@ class DualOptimizer(torch.optim.Optimizer):
         nu = torch._foreach_mul(_f32(nus), b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
         # u = (mu / bc1) / (sqrt(nu / bc2) + eps); p -= lr·(u + wd·p)
-        denom = _divide(nu, bc2, inv_bc2)
+        denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = _divide(mu, bc1, inv_bc1)
+        upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, denom)
-        _axpy(upd, wd, params)
-        _axpy(params, neg_lr, upd)
+        torch._foreach_add_(upd, params, alpha=wd)
+        torch._foreach_add_(params, upd, alpha=neg_lr)
         _store(mus, mu)
         _store(nus, nu)
 
@@ -263,25 +239,73 @@ class DualOptimizer(torch.optim.Optimizer):
                     out[p][slot] = t
         return out
 
+    def _items(self) -> list:
+        """This update's tensors ``(kind, owner, parameter, gradient)``, the
+        parameter and gradient this rank's slices."""
+        return [(group["kind"], p, self._owned(p, p), self._owned(p.grad, p))
+                for group in self.param_groups for p in group["params"] if p.grad is not None]
+
+    def _entries(self, items: list, device) -> list:
+        """The launch's entries of ``items``, all on ``device``
+        (:func:`~vibertgrid_tpu_torch.ops.fused_update.update_entry`, which
+        raises for what it cannot take)."""
+        out = []
+        for kind, p, param, grad in items:
+            if param.device != device:
+                raise ValueError(f"the update kernel takes tensors on one device, not {device} "
+                                 f"and {param.device}")
+            states = [self.state[p][slot] for slot in _SLOTS[kind]]
+            out.append(fused_update.update_entry(param, grad, states, kind == "bert"))
+        return out
+
+    def prepare(self) -> fused_update.TensorList | None:
+        """The launch's descriptor list for the gradients the parameters
+        hold now, built where it is not cached: a CUDA graph capture of the
+        update needs it (a capture copies nothing from the host), and the
+        caller keeps it for as long as the graph. None where no tensor is
+        on the card."""
+        items = [item for item in self._items() if item[2].is_cuda]
+        if not items:
+            return None
+        dev = items[0][2].device
+        self._place(dev)
+        return fused_update.descriptors(self._entries(items, dev), dev)
+
     @torch.no_grad()
-    def step(self, grad_scale: torch.Tensor | None = None):
-        row = None
-        for group in self.param_groups:
-            kind = group["kind"]
-            owners = [p for p in group["params"] if p.grad is not None]
-            if not owners:
+    def _passes(self, items: list, grad_scale: torch.Tensor | None) -> None:
+        """The update of ``items`` as ``torch._foreach_*`` passes over each
+        group's lists: the CPU's update, and the launch's reference."""
+        row = self._row()
+        for kind in ("cnn", "bert"):
+            chosen = [item for item in items if item[0] == kind]
+            if not chosen:
                 continue
-            params = [self._owned(p, p) for p in owners]
-            grads = _f32([self._owned(p.grad, p) for p in owners])
+            owners = [p for _, p, _, _ in chosen]
+            params = [param for _, _, param, _ in chosen]
+            grads = _f32([grad for _, _, _, grad in chosen])
             if grad_scale is not None:
                 grads = torch._foreach_mul(grads, grad_scale)
-            if row is None:
-                row = self._row(owners[0].device)
             if kind == "cnn":
                 self._sgd(owners, params, grads, row[_NEG_LR_CNN], row[_WD_CNN])
             else:
                 self._adamw(owners, params, grads, row[_NEG_LR_BERT], row[_WD_BERT],
-                            *row[_BC1:])
+                            row[_BC1], row[_BC2])
+
+    @torch.no_grad()
+    def step(self, grad_scale: torch.Tensor | None = None):
+        items = self._items()
+        card = [item for item in items if item[2].is_cuda]
+        host = [item for item in items if not item[2].is_cuda]
+        if card:
+            dev = card[0][2].device
+            self._place(dev)
+            fused_update.dual_update(
+                self._entries(card, dev), self._table, self._count_t, grad_scale,
+                momentum=self.momentum, beta1=self.beta1, beta2=self.beta2, eps=self.eps)
+        if host:
+            self._passes(host, grad_scale)
+        total = sum(item[2].numel() for item in items)
+        self.fused_share = 100.0 * sum(item[2].numel() for item in card) / total if total else 0.0
         if self.shards:  # every rank takes the others' updated slices
             all_gather_slices({p: self._owned(p, p) for p in self.shards}, self.shards,
                               out={p: p for p in self.shards}, group=self.group)
@@ -289,7 +313,7 @@ class DualOptimizer(torch.optim.Optimizer):
         self._count += 1
 
     _OWN = ("_schedules", "_host_table", "_table", "momentum", "beta1", "beta2", "eps",
-            "state_dtype", "_count", "_count_t", "shards", "group")
+            "state_dtype", "_count", "_count_t", "shards", "group", "fused_share")
 
     def __getstate__(self):  # the base class keeps only its own fields
         state = super().__getstate__()

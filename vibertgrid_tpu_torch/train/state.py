@@ -30,7 +30,10 @@ collectives run inside the step) stay eager; all take the same values.
 Under a profiler the step records its ranges (``train_step`` with
 ``forward``, ``backward`` and ``optimizer``;
 :mod:`vibertgrid_tpu_torch.utils.profiling`), the ``train_step`` range
-marked ``replayed``, ``captured`` or ``eager``. A replayed step's inner
+marked ``replayed``, ``captured`` or ``eager``, the ``optimizer`` range with
+the share of the update that the hand-written launch took (on the card the
+clip's sum of squares and both updates are one launch each,
+:mod:`vibertgrid_tpu_torch.ops.fused_update`). A replayed step's inner
 ranges carry the device intervals its graph's timing events measure, and no
 host interval: the host issues nothing for them. The syncs its thread
 makes are counted, which tests that claim.
@@ -60,7 +63,7 @@ import torch
 import torch.distributed as dist
 
 from vibertgrid_tpu_torch.models.vibertgrid import Batch, ViBERTgridNet
-from vibertgrid_tpu_torch.ops import kernels
+from vibertgrid_tpu_torch.ops import fused_update, kernels
 from vibertgrid_tpu_torch.parallel.collectives import average_gradients, global_batch
 from vibertgrid_tpu_torch.parallel.mesh import Layout, current_layout
 from vibertgrid_tpu_torch.parallel.sharding import param_shardings, reduce_scatter_mean
@@ -85,9 +88,15 @@ def create_train_state(model: ViBERTgridNet, optimizer: DualOptimizer) -> TrainS
 
 
 def _squares(grads) -> torch.Tensor | None:
+    """``Σ g²`` over every element of ``grads``, a 0-d fp64 tensor (None for
+    no gradient): on the card one hand-written launch
+    (:func:`~vibertgrid_tpu_torch.ops.fused_update.grad_sq_norm`, fp32
+    gradients, else it raises), on the CPU the library's fp64 norms."""
     grads = list(grads)
     if not grads:
         return None
+    if grads[0].is_cuda:
+        return fused_update.grad_sq_norm(grads)
     return torch.stack(torch._foreach_norm(grads, dtype=torch.float64)).square().sum()
 
 
@@ -126,6 +135,18 @@ def clip_scale(loss: torch.Tensor, grads, loss_clip_tresh: float, clip_norm: flo
     return torch.where(clip, clip_norm / gnorm.clamp(min=1e-12), 1.0)
 
 
+def _clip_lists(optimizer: DualOptimizer, owned: dict, split) -> tuple:
+    """:func:`clip_scale`'s gradients: the whole ones and the ZeRO-1 slices
+    ``owned``, each of the parameters that ``split`` does not hold and of
+    those it does."""
+    whole = {p: p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None and p not in optimizer.shards}
+    return ([g for p, g in whole.items() if p not in split],
+            [o for p, o in owned.items() if p not in split],
+            [g for p, g in whole.items() if p in split],
+            [o for p, o in owned.items() if p in split])
+
+
 def apply_gradients(optimizer: DualOptimizer, loss: torch.Tensor, parallel: bool,
                     loss_clip_tresh: float, clip_norm: float,
                     layout: Layout | None = None, split=frozenset()) -> None:
@@ -135,22 +156,30 @@ def apply_gradients(optimizer: DualOptimizer, loss: torch.Tensor, parallel: bool
     clip and both updates. ``split``: the parameters that tensor parallelism
     splits (:func:`~vibertgrid_tpu_torch.parallel.sharding.param_shardings`)."""
     layout = layout or (current_layout() if parallel else Layout())
-    grads = {p: p.grad for g in optimizer.param_groups for p in g["params"]
-             if p.grad is not None}
-    whole = {p: g for p, g in grads.items() if p not in optimizer.shards}
     owned = {}
     if parallel and layout.data > 1:
-        average_gradients(list(whole.values()), layout.data_group)
+        grads = {p: p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None}
+        average_gradients([g for p, g in grads.items() if p not in optimizer.shards],
+                          layout.data_group)
         zero = {p: g for p, g in grads.items() if p in optimizer.shards}
         reduce_scatter_mean(zero, optimizer.shards, layout.data_group)
         owned = {p: optimizer._owned(g, p) for p, g in zero.items()}
-    # whole gradients and ZeRO-1 slices, those of the split parameters apart
-    scale = clip_scale(
-        loss, [g for p, g in whole.items() if p not in split], loss_clip_tresh, clip_norm,
-        [o for p, o in owned.items() if p not in split],
-        split=[g for p, g in whole.items() if p in split],
-        split_owned=[o for p, o in owned.items() if p in split], layout=layout)
+    whole, owned_rest, split_whole, split_owned = _clip_lists(optimizer, owned, split)
+    scale = clip_scale(loss, whole, loss_clip_tresh, clip_norm, owned_rest, split=split_whole,
+                       split_owned=split_owned, layout=layout)
     optimizer.step(grad_scale=scale)
+
+
+def prepare_update(optimizer: DualOptimizer, split=frozenset()) -> list:
+    """The descriptor lists that the clip's norm and the update of a step
+    without a process group launch on, for the gradients the parameters hold
+    now, built where they are not cached: a CUDA graph capture of the step
+    finds them (a capture copies nothing from the host), and the caller keeps
+    them for as long as the graph."""
+    lists = [fused_update.norm_list(grads) for grads in _clip_lists(optimizer, {}, split)
+             if grads and grads[0].is_cuda]
+    return lists + [optimizer.prepare()]
 
 
 def _replicas_agree(layout: Layout | None):
@@ -190,6 +219,8 @@ class _Graph:
     grads: list             # (parameter, the shared buffer its gradient goes to, or None)
     table: torch.Tensor     # the optimizer's schedule table the graph reads
     marks: profiling.Marks  # the timing events of its ranges
+    fused_share: float      # the optimizer's fused_share at the captured update
+    lists: list             # the descriptor lists its clip and update read
 
 
 def _signature(state: TrainState, batch: Batch) -> tuple:
@@ -218,13 +249,17 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
     inflight: collections.deque = collections.deque()
     side = pool = None
 
+    def placement(model: ViBERTgridNet) -> tuple:
+        """The model's layout and the parameters it splits."""
+        layout = model.config.mesh or (current_layout() if parallel else None)
+        return layout, frozenset(p for p, ax in param_shardings(model, layout).items()
+                                 if ax is not None)
+
     def body(state: TrainState, batch: Batch, seeds, into: dict | None = None) -> torch.Tensor:
         """The step. ``into``: buffers ``{parameter: tensor}`` that the
         gradients are copied to after the backward, and read from after."""
         model, optimizer = state.model, state.optimizer
-        layout = model.config.mesh or (current_layout() if parallel else None)
-        split = frozenset(p for p, ax in param_shardings(model, layout).items()
-                          if ax is not None)
+        layout, split = placement(model)
         optimizer.zero_grad(set_to_none=True)
         with global_batch(parallel, layout), _replicas_agree(layout):
             out = model(batch, train=True, compute_loss=True, seeds=seeds)
@@ -238,8 +273,10 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
             torch._foreach_copy_([into[p] for p in got], [p.grad for p in got])
             for p in got:
                 p.grad = into[p]
-        with span("optimizer"):
+        with span("optimizer") as record:
             apply_gradients(optimizer, loss, parallel, loss_clip_tresh, clip_norm, layout, split)
+            if record is not None:
+                record.fused_share = optimizer.fused_share
         return loss.detach()
 
     def eager(state: TrainState, batch: Batch, seeds) -> torch.Tensor:
@@ -280,7 +317,11 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
         count, launched = optimizer.count, dict(kernels.LAUNCHES)
         side.wait_stream(torch.cuda.current_stream(dev))
         try:
+            for p, grad in zip(params, eager_grads):  # the gradients the capture will hold
+                p.grad = None if grad is None else buffers[p]
             with torch.cuda.stream(side), profiling.marking(marks):
+                # the lists the captured clip and update read: a capture copies nothing in
+                lists = prepare_update(optimizer, placement(state.model)[1])
                 # thread-local: the loader's thread may pin and copy meanwhile
                 graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
@@ -291,13 +332,15 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
                     raise
                 graph.capture_end()
             grads = [(p, p.grad) for p in params]
+            fused_share = optimizer.fused_share
         finally:  # the capture ran nothing: no update, no launch
             optimizer.advance_host_count(count - optimizer.count)
             kernels.LAUNCHES.update(launched)
             for p, grad in zip(params, eager_grads):
                 p.grad = grad
         torch.cuda.current_stream(dev).wait_stream(side)
-        return _Graph(graph, static, slots, loss, grads, optimizer.table, marks)
+        return _Graph(graph, static, slots, loss, grads, optimizer.table, marks, fused_share,
+                      lists)
 
     def replay(state: TrainState, batch: Batch, seeds, entry: _Graph) -> torch.Tensor:
         """Refill the graph's inputs and replay it. Its kernels are not
@@ -308,7 +351,9 @@ def make_train_step(loss_clip_tresh: float = 10.0, clip_norm: float = 2.0):
         upload(seeds, entry.seeds.numel(), dev, out=entry.seeds)
         if len(inflight) >= _RUN_AHEAD:
             inflight.popleft().synchronize()
-        profiling.replay(entry.graph, entry.marks)
+        for record in profiling.replay(entry.graph, entry.marks):
+            if record.name == "optimizer":
+                record.fused_share = entry.fused_share
         done = torch.cuda.Event()
         done.record()
         inflight.append(done)

@@ -73,6 +73,7 @@ class Span:
     device_end_ns: int | None = None
     syncs: int = 0          # synchronising calls made while it was the innermost open span
     mode: str | None = None  # train_step: "replayed", "captured" or "eager" (train/state.py)
+    fused_share: float | None = None  # optimizer: % of the update the launch took (train/optim.py)
     _events: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
 
@@ -204,7 +205,7 @@ class Recorder:
                 break
         self._anchor = (event, after)
 
-    def _replayed(self, marks: Marks) -> None:
+    def _replayed(self, marks: Marks) -> list[Span]:
         """Spans for the ranges of a replay just issued, in the innermost
         open span of this thread; their device intervals are read later."""
         stack = self._stack()
@@ -225,6 +226,7 @@ class Recorder:
             marks.pending = (self._anchor, pending)
             if not any(m is marks for m in self._replays):
                 self._replays.append(marks)
+        return [record for record, _, _ in pending]
 
     def _settle(self, marks: Marks) -> None:
         """Read the device intervals of ``marks``' last traced replay (this
@@ -357,15 +359,17 @@ def marking(marks: Marks):
             _MARKING -= 1
 
 
-def replay(graph, marks: Marks) -> None:
+def replay(graph, marks: Marks) -> list[Span]:
     """Replay ``graph``, captured under :func:`marking` into ``marks``; while
     tracing is on, its ranges become spans of this thread's innermost open
-    span. The last traced replay of the same graph is read first (waiting
-    for it, where it still runs), as this one records over its events."""
+    span, which are returned (else none). The last traced replay of the
+    same graph is read first (waiting for it, where it still runs), as this
+    one records over its events."""
     _RECORDER._settle(marks)
     graph.replay()
     if _autograd_profiler._is_profiler_enabled and marks.ranges and marks.last is not None:
-        _RECORDER._replayed(marks)
+        return _RECORDER._replayed(marks)
+    return []
 
 
 def spans() -> list[Span]:
